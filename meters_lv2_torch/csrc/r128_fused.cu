@@ -52,12 +52,14 @@
 #include <climits>
 #include <cstddef>
 
+#include "upsample4.cuh"
+
 namespace {
 
+using upsample4::kNh;                    // true-peak history, 2*24 - 1
+using upsample4::kPhases;                // oversampling factor
+using upsample4::kTaps;                  // FIR taps per phase
 constexpr int kBlk = 128;                // samples per block == threads per CTA
-constexpr int kNh = 47;                  // true-peak history, 2*24 - 1
-constexpr int kTaps = 48;                // FIR taps per phase
-constexpr int kPhases = 4;               // oversampling factor
 constexpr int kMaxC = 5;                 // channels: R128 supports 1..5
 constexpr int kOff = 48;                 // block offset in a channel buffer
 constexpr int kBuf = kOff + kBlk;        // [pad, halo(47), block(128)]
@@ -177,18 +179,9 @@ r128_fused_kernel(const float* __restrict__ x, const float* __restrict__ z0,
       pw += (y * y) * gains.g[c];
 
       // true peak: 4 phases of the 48-tap FIR over buf[1 + tid .. 48 + tid]
-      float u0 = 0.f, u1 = 0.f, u2 = 0.f, u3 = 0.f;
-      const float* win = buf + 1 + tid;
-#pragma unroll 8
-      for (int i = 0; i < kTaps; ++i) {
-        const float xi = win[i];
-        u0 = fmaf(s_taps[i], xi, u0);
-        u1 = fmaf(s_taps[kTaps + i], xi, u1);
-        u2 = fmaf(s_taps[2 * kTaps + i], xi, u2);
-        u3 = fmaf(s_taps[3 * kTaps + i], xi, u3);
-      }
-      const int lo = s_nf_lo, hi = s_nf_hi;
-      if (hi < 0 || (lo >= 1 + tid && hi <= 1 + tid + kNh)) {
+      float u0, u1, u2, u3;
+      upsample4::fir(s_taps, buf + 1 + tid, u0, u1, u2, u3);
+      if (upsample4::frame_ok(s_nf_lo, s_nf_hi, 1 + tid)) {
         // fmaxf returns the other operand for NaN: NaN oversamples skip
         tp = fmaxf(tp, fabsf(u0));
         tp = fmaxf(tp, fabsf(u1));

@@ -23,18 +23,11 @@ _REGISTRY: dict[str, Callable[..., Any]] = {}
 # have yet; create() names them in a NotImplementedError.
 NOT_YET_PORTED = frozenset(
     [
-        "BBCM6", "COR", "K12mono", "K12stereo", "K14mono", "K14stereo",
-        "K20mono", "K20stereo", "SigDistHist", "TPnRMSmono", "TPnRMSstereo",
-        "bitmeter", "dBTPmono", "dBTPstereo", "dr14mono", "dr14stereo",
-        "goniometer", "phasewheel", "spectr30mono", "spectr30stereo",
-        "stereoscope",
+        "SigDistHist", "TPnRMSmono", "TPnRMSstereo", "bitmeter", "dr14mono",
+        "dr14stereo", "goniometer", "phasewheel", "spectr30mono",
+        "spectr30stereo", "stereoscope",
     ]
     + [f"surround{n}" for n in range(3, 9)]
-    + [
-        # the needle meters (models/needle.py) register by instance name
-        "VUmono", "VUstereo", "DINmono", "DINstereo", "NORmono",
-        "NORstereo", "BBCmono", "BBCstereo", "EBUmono", "EBUstereo",
-    ]
 )
 
 

@@ -49,6 +49,20 @@ def canonical_device(device) -> torch.device:
     return device
 
 
+def check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
+    """Raise unless t is a contiguous float32 tensor of ``shape`` on
+    ``device``: what every kernel wrapper checks before it passes a
+    pointer."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class LTIBlockOp:
     """Precomputed block-recurrence operator (host numpy leaves).
@@ -258,3 +272,66 @@ class LTISystem:
         if squeeze and self.p == 1:
             y = y[..., 0]
         return y, s
+
+
+def one_pole_system(w: float) -> LTISystem:
+    """z' = (1-w) z + w x ; y = z' (post-update value, as the meters read)."""
+    A = np.array([[1.0 - w]])
+    B = np.array([[w]])
+    # y[t] must be the *updated* state: y = (1-w) z + w x
+    C = np.array([[1.0 - w]])
+    D = np.array([[w]])
+    return LTISystem(A, B, C, D)
+
+
+def grouped4_smoother_system(w: float) -> LTISystem:
+    """The shared VU/K-meter two-stage smoother at 4-sample cadence.
+
+    Semantics (vumeterdsp.cc:56-68 / kmeterdsp.cc:77-107): per group of 4
+    inputs u0..u3 (x^2 for the K-meter)::
+
+        z1 += w*(u_i - z1)      (4x)
+        z2 += 4w*(z1 - z2)      (once per group)
+
+    LTI with 4 inputs per step (m = 4).  Output = z2 after the update.
+    State order: (z1, z2).
+    """
+    wq = float(w)
+    a = 1.0 - wq
+    A1 = a**4
+    # z1_out = (1-w)^4 z1 + sum_i w (1-w)^{3-i} u_i
+    Bu = np.array([wq * a**3, wq * a**2, wq * a, wq])
+    # z2_out = (1-4w) z2 + 4w z1_out
+    A = np.array([[A1, 0.0], [4 * wq * A1, 1.0 - 4 * wq]])
+    B = np.vstack([Bu, 4 * wq * Bu])  # [2, 4]
+    C = np.array([[4 * wq * A1, 1.0 - 4 * wq]])  # z2 after update
+    D = (4 * wq * Bu)[None, :]
+    return LTISystem(A, B, C, D)
+
+
+def vu_grouped4_system(w: float) -> LTISystem:
+    """VU meter exact 4-sample-cadence recurrence (vumeterdsp.cc:56-68).
+
+    Per group with t2 = z2/2 frozen at group start::
+
+        z1 += w*(|x_i| - z2/2 - z1)   (4x)
+        z2 += 4w*(z1 - z2)
+
+    Inputs are |x_i| (4 per group, m = 4); output = z2 after the group
+    update.  The -z2/2 feed makes z2 enter the z1 path: fold into A.
+    """
+    wq = float(w)
+    a = 1.0 - wq
+    # z1_out = a^4 z1 + (sum_i w a^{3-i}) * (-z2/2) + sum_i w a^{3-i} |x_i|
+    Bu = np.array([wq * a**3, wq * a**2, wq * a, wq])
+    s_b = Bu.sum()
+    A = np.array(
+        [
+            [a**4, -0.5 * s_b],
+            [4 * wq * a**4, 1.0 - 4 * wq - 4 * wq * 0.5 * s_b],
+        ]
+    )
+    B = np.vstack([Bu, 4 * wq * Bu])
+    C = A[1:2, :]
+    D = B[1:2, :]
+    return LTISystem(A, B, C, D)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import lti, resample
-from .lti import canonical_device
+from .lti import canonical_device, check_tensor
 
 BLOCK = 128  # kernel block (samples); T must be a multiple
 _NH = 47  # true-peak history
@@ -36,7 +36,6 @@ _MAX_C = 5  # channels the kernel supports (R128: 1..5)
 # of fused_core counts.
 launch_count = 0
 
-_TAPS_ON: dict[torch.device, torch.Tensor] = {}
 _GAINS_ON: dict[tuple, torch.Tensor] = {}
 
 
@@ -87,25 +86,6 @@ def _gains_on(gains: tuple, device) -> torch.Tensor:
     return _GAINS_ON[key]
 
 
-def _taps_on(device: torch.device) -> torch.Tensor:
-    if device not in _TAPS_ON:
-        _TAPS_ON[device] = torch.as_tensor(
-            resample.upsample4_taps(), device=device
-        ).contiguous()
-    return _TAPS_ON[device]
-
-
-def _check_f32_contiguous(name: str, t: torch.Tensor, shape, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _fused_core_cuda(x, z0, hist, gains, op):
     global launch_count
     from ..runtime import build
@@ -121,12 +101,12 @@ def _fused_core_cuda(x, z0, hist, gains, op):
         raise ValueError("empty batch")
     if not (op.block == BLOCK and op.d == 4 and op.m == 1 and op.p == 1):
         raise ValueError("op must be the 4-state K-weighting operator at block 128")
-    _check_f32_contiguous("x", x, x.shape, device)
-    _check_f32_contiguous("z0", z0, (B, C, 4), device)
-    _check_f32_contiguous("hist", hist, (B, C, _NH), device)
+    check_tensor("x", x, x.shape, device)
+    check_tensor("z0", z0, (B, C, 4), device)
+    check_tensor("hist", hist, (B, C, _NH), device)
 
     w = op.tensors(device)
-    taps = _taps_on(device)
+    taps = resample.upsample4_taps_on(device)
     p = torch.empty((B, T), dtype=torch.float32, device=device)
     z = torch.empty((B, C, 4), dtype=torch.float32, device=device)
     h = torch.empty((B, C, _NH), dtype=torch.float32, device=device)

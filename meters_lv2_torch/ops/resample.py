@@ -31,11 +31,21 @@ _HL = 24  # zita half-length: 48 taps, 47 samples of history
 
 _BLOCK_MATS: dict[tuple, np.ndarray] = {}
 _BLOCK_MATS_ON: dict[tuple, torch.Tensor] = {}
+_TAPS_ON: dict[torch.device, torch.Tensor] = {}
 
 
 def upsample4_taps() -> np.ndarray:
     """[4, 48] float32 phase filters (float64 design)."""
     return upsample4_kernel(_HL).astype(np.float32)
+
+
+def upsample4_taps_on(device) -> torch.Tensor:
+    """upsample4_taps() as a contiguous tensor on ``device``, cached: what
+    the CUDA kernels read."""
+    device = canonical_device(device)
+    if device not in _TAPS_ON:
+        _TAPS_ON[device] = torch.as_tensor(upsample4_taps(), device=device).contiguous()
+    return _TAPS_ON[device]
 
 
 def _block_matrix(taps: np.ndarray, tb: int) -> np.ndarray:

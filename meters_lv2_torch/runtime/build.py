@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles every ``meters_lv2_torch/csrc/*.cu`` for ``sm_90a`` into
-one shared library with a plain C interface,
-``build/meters_lv2_torch/libmeters_torch_kernels.so`` in the checkout, and
-``ctypes`` loads it.  A sidecar file holds the sha256 of the sources and
-flags, so the library is rebuilt only when they change; an ``fcntl.flock``
-serialises concurrent builds.  Nothing here runs at import time: a machine
-without ``nvcc`` can import the package and use the plain CPU versions.
+``nvcc`` compiles every ``meters_lv2_torch/csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface,
+``build/meters_lv2_torch/libmeters_torch_kernels.so`` in the checkout, which
+``ctypes`` loads.  A sidecar file holds the sha256 of the sources (the
+``*.cuh`` headers included) and flags, so the library is rebuilt only when
+they change; an ``fcntl.flock`` serialises concurrent builds.  Nothing here
+runs at import time: a machine without ``nvcc`` can import the package and
+use the plain CPU versions.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ LIB_NAME = "libmeters_torch_kernels.so"
 # into build.log
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -58,11 +60,21 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands concurrently; (cmd, exit code, output) of each."""
+    procs = [
+        (c, subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for _, p in procs]
+    return [(c, p.returncode, out) for (c, p), out in zip(procs, outs)]
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless an up-to-date one
     exists; return its path.  Raises RuntimeError if nvcc fails."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = _digest(sources)
+    digest = _digest(sorted(CSRC_DIR.glob("*.cu*")))  # *.cu and *.cuh
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / LIB_NAME
     sidecar = BUILD_DIR / (LIB_NAME + ".srchash")
@@ -71,18 +83,29 @@ def build() -> Path:
         if (lib.exists() and sidecar.exists()
                 and sidecar.read_text() == digest):
             return lib
-        tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + r.stdout + r.stderr
-        )
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed with exit code {r.returncode}:\n"
-                f"{r.stderr[-6000:]}"
+        nvcc = _nvcc()
+        pid = os.getpid()
+        objs = [BUILD_DIR / f".{src.stem}.{pid}.o" for src in sources]
+        tmp = BUILD_DIR / f".{LIB_NAME}.{pid}.tmp"
+        try:
+            runs = _run_all([
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(sources, objs)
+            ])
+            if all(rc == 0 for _, rc, _ in runs):
+                runs += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+            (BUILD_DIR / "build.log").write_text(
+                "\n".join(" ".join(c) + "\n" + out for c, _, out in runs)
             )
+            for _, rc, out in runs:
+                if rc != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"nvcc failed with exit code {rc}:\n{out[-6000:]}"
+                    )
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         os.replace(tmp, lib)
         sidecar.write_text(digest)
     return lib
@@ -102,6 +125,27 @@ def kernels() -> ctypes.CDLL:
             + [ctypes.POINTER(ctypes.c_float)]  # gains (host)
             + [ci] * 3  # B, C, T
             + [vp] * 4  # p, z, hist_out, tpmax (device)
+            + [vp]  # cudaStream_t
+        )
+        cf = ctypes.c_float
+        f = lib.ballistics_launch
+        f.restype = ci
+        f.argtypes = (
+            [vp] * 5  # t, z1, z2, m, p (device)
+            + [ci] * 2  # N, T
+            + [cf] * 3  # w1, w2, w3
+            + [ci]  # track_peak
+            + [vp] * 4  # z1, z2, m, p out (device)
+            + [vp]  # cudaStream_t
+        )
+        f = lib.truepeak_fused_launch
+        f.restype = ci
+        f.argtypes = (
+            [vp, ci]  # x (device), row stride
+            + [vp] * 6  # hist, z1, z2, m, p, taps (device)
+            + [ci] * 2  # N, T
+            + [cf] * 3  # w1, w2, w3
+            + [vp] * 5  # z1, z2, m, p, hist out (device)
             + [vp]  # cudaStream_t
         )
         lib.meters_cuda_error_string.restype = ctypes.c_char_p

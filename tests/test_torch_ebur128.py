@@ -252,3 +252,106 @@ def test_golden_parity(prefix):
         np.testing.assert_array_equal(st.hist_s.numpy(), final["histS"], err_msg=tag)
         assert int(st.count_m) == final["countM"], tag
         assert int(st.count_s) == final["countS"], tag
+
+
+@pytest.mark.parametrize("prefix", ["ebur128_44k", "ebur128_96k", "ebur128_blk4096"])
+def test_golden_rates_and_block_size(prefix):
+    """tests/test_golden_parity.py::test_parity_441khz, test_parity_96khz
+    and test_block_size_invariance for R128 through the port: M and S
+    within 0.01 dB at every read (44.1/96 kHz), histograms bin-exact."""
+    fxs = _fixtures(prefix)
+    assert fxs, prefix
+    for fx in fxs:
+        m = TorchMeter(fx["fs"], nchan=2)
+        xt = torch.from_numpy(make_signal(fx["signal"], fx["seconds"], fs=fx["fs"]))
+        st = m.init(())
+        mid = iter([r for r in fx["reads"] if "final" not in r])
+        final = [r for r in fx["reads"] if r.get("final")][0]
+        blk = fx["block"]
+        for b in range(xt.shape[1] // blk):
+            st = m.update(st, xt[:, b * blk:(b + 1) * blk])
+            if prefix != "ebur128_blk4096" and (b + 1) % fx["read_every"] == 0:
+                out, _ = m.read(st)
+                rec = next(mid)
+                for key, mine in [("M", "loudness_M"), ("S", "loudness_S")]:
+                    if rec[key] > -199.0:
+                        _check(rec[key], float(out[mine]), f"{prefix} blk {rec['block']} {key}")
+        np.testing.assert_array_equal(st.hist_m.numpy(), final["histM"], err_msg=prefix)
+        if prefix != "ebur128_44k":
+            np.testing.assert_array_equal(st.hist_s.numpy(), final["histS"], err_msg=prefix)
+
+
+def test_reference_radar_ring_golden():
+    """tests/test_golden_parity.py::test_ebur128_reference_radar_parity
+    through the port: reference_radar=True reproduces the wrapper's
+    block-rate radar ring; positions exact, values within 5e-4."""
+    fxs = [fx for fx in _fixtures("ebur128") if fx["nchan"] == 2]
+    assert len(fxs) == 7
+    for fx in fxs:
+        m = TorchMeter(fx["fs"], nchan=2, reference_radar=True)
+        xt = torch.from_numpy(make_signal(fx["signal"], fx["seconds"], fs=fx["fs"]))
+        st = m.init(())
+        blk = fx["block"]
+        for b in range(xt.shape[1] // blk):
+            st = m.update(st, xt[:, b * blk:(b + 1) * blk])
+        final = [r for r in fx["reads"] if r.get("final")][0]
+        assert int(st.radar_pos) == final["radarPos"], fx["signal"]
+        for got, want, tag in ((st.radar_m.numpy(), np.asarray(final["radarM"]), "M"),
+                               (st.radar_s.numpy(), np.asarray(final["radarS"]), "S")):
+            unset = want <= -998.0  # -999 encodes -inf
+            assert np.all(np.isneginf(got[unset])), (fx["signal"], tag)
+            np.testing.assert_allclose(got[~unset], want[~unset], atol=5e-4,
+                                       err_msg=f"{fx['signal']} radar{tag}")
+
+
+def _tone(level_dbfs, seconds, fs=48000, f0=997.0):
+    t = np.arange(int(fs * seconds)) / fs
+    s = (10 ** (level_dbfs / 20.0) * np.sin(2 * np.pi * f0 * t)).astype(np.float32)
+    return np.stack([s, s])
+
+
+def _whole(*parts):
+    """The port meter over the parts, one update each; the readouts."""
+    m = TorchMeter(48000, nchan=2)
+    st = m.init(())
+    for x in parts:
+        st = m.update(st, torch.from_numpy(x))
+    return {k: float(v) for k, v in m.read(st)[0].items() if v.ndim == 0}
+
+
+def _compliance(case):
+    if case == "bs1770_1khz_calibration":
+        out = _whole(_tone(-23.0, 10.0))
+        assert abs(out["integrated"] + 23.0) < 0.1  # Tech 3341; 0.1 LU bins
+        assert abs(out["loudness_M"] + 23.0) < 0.05
+        assert abs(out["loudness_S"] + 23.0) < 0.05
+    elif case == "gain_linearity":
+        d = _whole(_tone(-23.0, 10.0))["integrated"] - _whole(_tone(-33.0, 10.0))["integrated"]
+        assert abs(d - 10.0) < 0.02
+    elif case == "absolute_gate_ignores_silence":
+        a = _whole(_tone(-23.0, 10.0))["integrated"]
+        b = _whole(_tone(-23.0, 10.0), np.zeros((2, 48000 * 8), np.float32))["integrated"]
+        assert abs(a - b) < 0.1
+    elif case == "relative_gate_excludes_quiet_passage":
+        i = _whole(np.concatenate([_tone(-36.0, 20.0), _tone(-23.0, 20.0)], axis=1))["integrated"]
+        assert -23.6 < i < -22.9, i
+    elif case == "lra_two_level_programme":
+        lra = _whole(np.concatenate([_tone(-30.0, 20.0), _tone(-20.0, 20.0)], axis=1))["lra"]
+        assert 8.0 < lra < 11.0, lra
+    else:  # momentary_vs_short_windows
+        out = _whole(_tone(-33.0, 6.0), _tone(-23.0, 1.0))
+        assert abs(out["loudness_M"] + 23.0) < 0.1
+        assert out["loudness_S"] < -24.0
+
+
+@pytest.mark.parametrize("case", [
+    "bs1770_1khz_calibration", "gain_linearity", "absolute_gate_ignores_silence",
+    "relative_gate_excludes_quiet_passage", "lra_two_level_programme",
+    "momentary_vs_short_windows",
+])
+def test_standards_compliance(case):
+    """tests/test_standards_compliance.py through the port: BS.1770 1 kHz
+    calibration, dB linearity, the absolute and relative gates, the LRA of
+    a two-level programme and the M/S window lengths (EBU Tech 3341/3342
+    constructions), each block fed to one update()."""
+    _compliance(case)

@@ -149,3 +149,50 @@ def test_shifted_segments_matches_jax(reduce, T, seg_len):
         np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     else:  # sums of up to 2400 f32 values in two orders
         np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-5)
+
+
+_SYSTEMS = {
+    "one_pole": lambda fs: t_design.stcorr_coeffs(fs)[0],
+    "grouped4_smoother": lambda fs: t_design.kmeter_coeffs(fs)[0],
+    "vu_grouped4": lambda fs: t_design.vu_coeffs(fs)[0],
+}
+
+
+def _system_pair(name, fs=48000):
+    w = _SYSTEMS[name](fs)
+    return getattr(t_lti, name + "_system")(w), getattr(j_lti, name + "_system")(w)
+
+
+@pytest.mark.parametrize("name", sorted(_SYSTEMS))
+@pytest.mark.parametrize("fs", [44100, 96000])
+def test_meter_systems_bit_identical(name, fs):
+    """(A, B, C, D) and the block operators from the same float64 numpy code."""
+    ts, js = _system_pair(name, fs)
+    for k in "ABCD":
+        a, b = getattr(ts, k), getattr(js, k)
+        assert a.dtype == b.dtype == np.float64 and np.array_equal(a, b), k
+    assert (ts.d, ts.m, ts.p) == (js.d, js.m, js.p)
+    for block in (128, 37):
+        for k in ("kmat", "sy", "at", "g"):
+            assert np.array_equal(getattr(ts.op(block), k), getattr(js.op(block), k)), k
+
+
+@pytest.mark.parametrize("name", sorted(_SYSTEMS))
+@pytest.mark.parametrize("steps", [128 * 3 + 37, 128 * 20, 50])
+def test_meter_system_apply_matches_jax(name, steps):
+    """The grouped systems take m = 4 inputs per step ([..., steps, 4]), the
+    one-pole a plain [..., T]; main 128-step blocks plus a remainder block
+    (steps = 50: the remainder only; 128 * 20: the JAX side's associative
+    scan).  float32 on both sides with different summation orders, so
+    within 1e-5 of each quantity's scale."""
+    ts, js = _system_pair(name)
+    rng = np.random.default_rng(steps + len(name))
+    shape = (3, 2, steps, 4) if ts.m == 4 else (3, 2, steps)
+    u = np.abs(0.5 * rng.standard_normal(shape)).astype(np.float32)
+    s0 = (0.1 * rng.standard_normal((3, 2, ts.d))).astype(np.float32)
+    yt, st = ts.apply(_t(u), _t(s0))
+    yj, sj = js.apply(jnp.asarray(u), jnp.asarray(s0))
+    assert yt.shape == yj.shape and st.shape == sj.shape
+    assert yt.dtype == st.dtype == torch.float32
+    _close_to_scale(yt, yj)
+    _close_to_scale(st, sj, axis=(0, 1))

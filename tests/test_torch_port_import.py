@@ -42,14 +42,43 @@ def test_registry_names_every_jax_meter():
     refused by name with NotImplementedError."""
     from meters_lv2_tpu.models import available as jax_available
 
-    assert set(meters_lv2_torch.available()) == {"EBUr128"}
+    assert set(meters_lv2_torch.available()) == {"EBUr128"} | PORTED_BALLISTICS
+    assert not set(meters_lv2_torch.available()) & torch_base.NOT_YET_PORTED
     assert set(jax_available()) == (
         set(meters_lv2_torch.available()) | torch_base.NOT_YET_PORTED
     )
-    with pytest.raises(NotImplementedError, match="dBTPmono"):
-        meters_lv2_torch.create("dBTPmono", 48000)
+    for name in ("dr14mono", "TPnRMSstereo", "spectr30mono", "surround5"):
+        with pytest.raises(NotImplementedError, match=name):
+            meters_lv2_torch.create(name, 48000)
     with pytest.raises(KeyError):
         meters_lv2_torch.create("no-such-meter", 48000)
+
+
+PORTED_BALLISTICS = {
+    "dBTPmono", "dBTPstereo", "BBCM6", "COR",
+    "K12mono", "K12stereo", "K14mono", "K14stereo", "K20mono", "K20stereo",
+    "VUmono", "VUstereo", "DINmono", "DINstereo", "NORmono", "NORstereo",
+    "BBCmono", "BBCstereo", "EBUmono", "EBUstereo",
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_BALLISTICS))
+def test_create_ballistics_meter(name):
+    """create() gives the class the JAX package registers under the name;
+    one update and read on a small batch run on CPU tensors."""
+    from meters_lv2_tpu.models import create as jax_create
+
+    m = meters_lv2_torch.create(name, 44100)
+    assert type(m).__name__ == type(jax_create(name, 44100)).__name__
+    stereo_in = name in ("BBCM6", "COR")
+    st = m.init((2,))
+    x = torch.from_numpy(
+        (0.1 * np.random.default_rng(0).standard_normal((2, 2, 256) if stereo_in else (2, 256)))
+        .astype(np.float32))
+    st = m.update(st, x)
+    out, _ = m.read(st)
+    for v in (out.values() if isinstance(out, dict) else [out]):
+        assert v.shape == (2,) and v.dtype == torch.float32 and bool(torch.isfinite(v).all())
 
 
 def test_ref_level_gain_matches_jax():
