@@ -9,27 +9,40 @@ Phases, each printed on its own line; any failure exits non-zero:
 
   1. device   the card, its power limit, fp32 matmul precision settings;
   2. build    nvcc builds every kernel from meters_lv2_torch/csrc;
-  3. kernels  each kernel (r128_fused, ballistics, truepeak_fused) against
-              its plain PyTorch version on the same card tensors;
+  3. kernels  each kernel (r128_fused, ballistics, truepeak_fused,
+              bitmeter_stats) against its plain PyTorch version on the same
+              card tensors;
   4. main     at the bench operating point (B=256 streams of 48 kHz
               stereo, 12 flat 1 s blocks): EbuR128Meter, then dBTPstereo,
               BBCstereo, DINstereo, BBCM6, VUstereo, K20stereo and COR,
               each with the kernel launch counts checked and streams 0-3
               held against the same meter on CPU tensors; dBTPstereo also
-              in 1000-sample blocks (a 104-sample tail per update);
+              in 1000-sample blocks (a 104-sample tail per update); then
+              the statistics meters dr14stereo, TPnRMSstereo, SigDistHist
+              (both modes) and bitmeter (channel 0) over 60 blocks (20 DR
+              windows), created and initialised with no device argument,
+              streams 0-3 after 12 blocks held against CPU runs, and a
+              NaN/+-Inf stream through sigdist and DR-14 on both;
   5. golden   committed C-reference fixtures streamed on the card: two
-              R128 ones and every fixture of the ballistics families;
+              R128 ones, every fixture of the ballistics families and the
+              14 statistics fixtures (DR-14, TP+RMS, sigdist, bit meter);
   6. times    each kernel vs its plain version, the ballistics kernel alone
               at 4,224 to 33,792 rows, and main-path x-realtime (R128 over
               120 blocks, down from 240 to keep the whole run well inside
-              its time limit; dBTP, BBC and BBC M-6 over 60).
+              its time limit; dBTP, BBC, BBC M-6 and the statistics meters
+              over 60).
 
-The last lines are a JSON summary of the kernels, the nvidia-smi name and
-power limit, and {"ok": true, "device": {...}}.  Without CUDA, or outside a
-checkout, it exits non-zero and prints no result.  It imports no JAX.
+The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
+sample on the CPU) go to worker processes at the start and are collected in
+phase 4, so they overlap the card's work.  The last lines are a JSON
+summary of the kernels, the nvidia-smi name and power limit, and
+{"ok": true, "device": {...}}.  Without CUDA, or outside a checkout, it
+exits non-zero and prints no result.  It imports no JAX.
 """
 
+import dataclasses
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -68,10 +81,24 @@ TP_RTOL = 1e-6
 # and m, p are maxima of z1 + z2 and |up|, so they inherit a few ulp.
 TPK_RTOL = 1e-5
 COR_TOL = 1e-4  # card vs CPU correlation readout, absolute
+# statistics meters, card vs CPU: histograms, counters, window counts,
+# bit-meter min/max and DR top-2 peaks exact (integer sums, maxima of the
+# same floats); every other float state leaf (sigdist mean / M2 / sum, the
+# DR-14 / TP+RMS K-meter, true-peak and RMS-sum leaves) within 1e-5 of the
+# leaf's scale plus 1e-6 (float32 sums in another order, the truepeak
+# kernel's FIR in tap order); DR-14 / TP+RMS readouts within STATS_TOL_DB,
+# the dB image of that 1e-5 (20 log10(1 + 1e-5) = 8.7e-5 dB; an H100 run
+# measured 1.91e-6 dB).
+SD_SCALE, SD_FLOOR = 1e-5, 1e-6
+STATS_TOL_DB = 1e-4
+N_STATS = 60  # main-path blocks of the statistics meters (20 DR windows)
+# H100 SXM datasheet peaks: HBM bytes/s, fp32 FLOP/s
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    stop_workers()
     sys.exit(1)
 
 
@@ -252,6 +279,131 @@ def readouts(out):
     return out if isinstance(out, dict) else {"value": out}
 
 
+def main_blocks():
+    """The 12 flat 1 s blocks [B_MAIN, 2*FS] of the main path."""
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal((B_MAIN, 2 * FS), dtype=np.float32) * np.float32(0.1)
+            for _ in range(12)]
+
+
+def nan_blocks():
+    """Four 1 s stereo blocks of 4 streams with NaN and +-Inf samples."""
+    rng = np.random.default_rng(1)
+    xs = [rng.standard_normal((4, 2, FS), dtype=np.float32) * np.float32(0.2)
+          for _ in range(4)]
+    xs[0][3, 0, 50] = np.nan
+    xs[1][0, 1, 100] = np.nan
+    xs[2][1, 0, 200] = np.inf
+    xs[2][2, 1, 300] = -np.inf
+    return xs
+
+
+# (meter, constructor arguments, input layout): "stereo" feeds [.., 2, T],
+# "ch0" channel 0 as [.., T]
+STATS = [
+    ("dr14stereo", {}, "stereo"),
+    ("TPnRMSstereo", {}, "stereo"),
+    ("SigDistHist", {}, "ch0"),
+    ("SigDistHist", {"reference_oor_count": True}, "ch0"),
+    ("bitmeter", {}, "ch0"),
+]
+
+
+def stats_input(x, layout):
+    return x if layout == "stereo" else x[..., 0, :]
+
+
+def cpu_stats_run(name, kw, layout, which):
+    """A statistics meter on CPU tensors over streams 0-3 of the first 12
+    main-path blocks (which="main") or over nan_blocks(); returns (state,
+    readouts) as numpy.  Runs in a worker process for DR-14 and TP+RMS."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    import meters_lv2_torch
+    from meters_lv2_torch.utils.interop import state_to_numpy
+
+    if which == "main":
+        xs = [b.reshape(B_MAIN, 2, FS)[:4].copy() for b in main_blocks()]
+    else:
+        xs = nan_blocks()
+    m = meters_lv2_torch.create(name, FS, **kw)
+    st = m.init((4,), device="cpu")
+    for xb in xs:
+        st = m.update(st, stats_input(torch.from_numpy(xb), layout))
+    out, st = m.read(st)
+    return state_to_numpy(st), {k: v.numpy() for k, v in out.items()}
+
+
+def compare_stats(name, got_state, got_out, ref_state, ref_out):
+    """Card state and readouts (numpy, streams 0-3) against the CPU run's;
+    returns (worst readout difference, list of breaches)."""
+    errs = []
+
+    def walk(a, b, path):
+        for k in b:
+            if isinstance(b[k], dict):
+                walk(a[k], b[k], f"{path}.{k}")
+                continue
+            x, y = a[k], b[k]
+            if y.dtype.kind in "ib" or name == "bitmeter" or k == "peak_top2":
+                if not np.array_equal(x, y, equal_nan=y.dtype.kind == "f"):
+                    errs.append(f"{path}.{k} not exact")
+            else:
+                f = np.isfinite(y)
+                if not np.array_equal(x[~f], y[~f], equal_nan=True):
+                    errs.append(f"{path}.{k} non-finite values differ")
+                tol = SD_SCALE * np.abs(y[f]).max(initial=0.0) + SD_FLOOR
+                if np.any(np.abs(x[f] - y[f]) > tol):
+                    errs.append(f"{path}.{k} differs by {np.abs(x[f] - y[f]).max():.3g}")
+
+    walk(got_state, ref_state, name)
+    worst = 0.0
+    for k, y in ref_out.items():
+        x = got_out[k]
+        f = np.isfinite(y)
+        if not np.array_equal(x[~f], y[~f], equal_nan=True):
+            errs.append(f"readout {k} non-finite values differ")
+        if y.dtype.kind in "ib":
+            if not np.array_equal(x, y):
+                errs.append(f"readout {k} not exact")
+            continue
+        d = np.abs(x[f].astype(np.float64) - y[f]).max(initial=0.0)
+        if name.startswith(("dr14", "TPnRMS")):
+            worst = max(worst, d)
+            if d > STATS_TOL_DB:
+                errs.append(f"readout {k} differs by {d:.3g} dB")
+        elif name == "bitmeter" and d != 0.0:
+            errs.append(f"readout {k} not exact")
+    return worst, errs
+
+
+def compare_bitstats(got, ref, tag):
+    """One bitmeter_stats call against the plain version: every field
+    exact.  Returns (max abs difference, breaches)."""
+    import torch
+
+    errs = [f"{k} not exact" for k in ref
+            if not (same_bits(got[k], ref[k]) if ref[k].is_floating_point()
+                    else torch.equal(got[k], ref[k]))]
+    err = max(finite_err(got[k].double(), ref[k].double()) for k in ref)
+    print(f"  bitmeter_stats {tag}: max abs err {err:.3g}: "
+          f"{'ok, exact' if not errs else 'FAIL ' + '; '.join(errs)}")
+    return err, errs
+
+
+POOL = None  # worker processes of the CPU runs
+
+
+def stop_workers():
+    global POOL
+    if POOL is not None:
+        POOL.terminate()
+        POOL.join()
+        POOL = None
+
+
 def main():
     try:
         import torch
@@ -263,8 +415,10 @@ def main():
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
     try:
         import meters_lv2_torch
-        from meters_lv2_torch.ops import ballistics_core, design, lti, r128_fused, truepeak_fused
+        from meters_lv2_torch.ops import (
+            ballistics_core, bitmeter_stats, design, lti, r128_fused, truepeak_fused)
         from meters_lv2_torch.runtime import build
+        from meters_lv2_torch.utils.interop import state_to_numpy
     except ImportError as e:
         fail(f"cannot import meters_lv2_torch ({e}): run from the root of a checkout")
 
@@ -287,6 +441,20 @@ def main():
     log = (build.BUILD_DIR / "build.log").read_text().splitlines()
     regs = sorted({ln.split("ptxas info    : ")[-1] for ln in log if "registers" in ln})
     print(f"phase build: ok in {build_s:.2f} s; ptxas: {' | '.join(regs)}")
+
+    # the CPU runs of the statistics meters, in worker processes (spawned:
+    # they touch no CUDA) while the card works
+    global POOL
+    POOL = multiprocessing.get_context("spawn").Pool(4)
+    cpu_runs = {}
+    for name, kw, layout in STATS:
+        cpu_runs[name, tuple(kw.items()), "main"] = POOL.apply_async(
+            cpu_stats_run, (name, kw, layout, "main"))
+    for name, kw, layout in STATS:
+        if name in ("dr14stereo", "SigDistHist"):
+            cpu_runs[name, tuple(kw.items()), "nan"] = POOL.apply_async(
+                cpu_stats_run, (name, kw, layout, "nan"))
+    POOL.close()
 
     # -- 3. kernels vs plain version ----------------------------------------
     sysm = lti.LTISystem(*design.k_weighting_state_space(FS))
@@ -377,15 +545,39 @@ def main():
         err, errs = compare_truepeak(got, ref, tag)
         failures += [f"truepeak_fused {tag}: {e}" for e in errs]
         tp_err = err
+    from signals import make_signal
+
+    w = make_signal("weird_floats", 1.0)
+    xw = np.stack([w[0], w[1], -w[0]])
+    xr = rng.standard_normal((B_MAIN, FS), dtype=np.float32) * np.float32(0.1)
+    bit_err = None
+    for tag, x, strided in [
+        (f"main-path shape N={B_MAIN} T={FS}", np.random.default_rng(0).standard_normal(
+            (B_MAIN, FS), dtype=np.float32) * np.float32(0.1), False),
+        ("weird_floats N=3 T=48000", xw, False),
+        ("N=5 T=1000", xr[:5, :1000], False),
+        ("N=5 T=1", xr[:5, :1], False),
+        ("strided rows N=7 T=10000", xr[:7, :10000], True),
+        ("weird_floats strided rows N=3 T=48000", xw, True),
+    ]:
+        if strided:
+            xd = torch.as_tensor(np.concatenate([x, x], axis=1), device=dev)[:, :x.shape[1]]
+        else:
+            xd = torch.as_tensor(np.ascontiguousarray(x), device=dev)
+        got = bitmeter_stats.bitmeter_stats(xd)
+        ref = bitmeter_stats.bitmeter_stats_reference(xd)
+        torch.cuda.synchronize()
+        err, errs = compare_bitstats(got, ref, tag)
+        failures += [f"bitmeter_stats {tag}: {e}" for e in errs]
+        if bit_err is None:
+            bit_err = err
     if failures:
         fail("kernel vs plain: " + " | ".join(failures))
     print("phase kernels: ok")
 
     # -- 4. main path -------------------------------------------------------
     meter = meters_lv2_torch.create("EBUr128", FS, nchan=2)
-    rng = np.random.default_rng(0)
-    blocks = [rng.standard_normal((B_MAIN, 2 * FS), dtype=np.float32) * np.float32(0.1)
-              for _ in range(12)]
+    blocks = main_blocks()
     st = meter.init((B_MAIN,), device=dev)
     r128_fused.launch_count = 0
     for xb in blocks:
@@ -399,7 +591,7 @@ def main():
         v = out[k]
         if v.shape != (B_MAIN,) or not bool(torch.isfinite(v).all()):
             fail(f"main path readout {k} not finite of shape ({B_MAIN},)")
-    st_c = meter.init((4,))
+    st_c = meter.init((4,), device="cpu")
     for xb in blocks:
         st_c = meter.update(st_c, torch.as_tensor(xb[:4]), flat=True)
     out_c, st_c = meter.read(st_c)
@@ -425,6 +617,7 @@ def main():
         r128_fused.launch_count = 0
         ballistics_core.launch_count = 0
         truepeak_fused.launch_count = 0
+        bitmeter_stats.launch_count = 0
 
     def counts():
         return ballistics_core.launch_count, truepeak_fused.launch_count
@@ -459,7 +652,7 @@ def main():
         for k, v in out.items():
             if v.shape != batch or not bool(torch.isfinite(v).all()):
                 fail(f"main path {name} readout {k} not finite of shape {batch}")
-        st_c = m.init((4, *batch[1:]))
+        st_c = m.init((4, *batch[1:]), device="cpu")
         for xb in blocks3:
             st_c = m.update(st_c, torch.as_tensor(xb[:4]))
         out_c = readouts(m.read(st_c)[0])
@@ -480,7 +673,7 @@ def main():
     # 104-sample tail through upsample4 + the ballistics kernel per update
     m = meters_lv2_torch.create("dBTPstereo", FS)
     x4 = blocks3[0][:4]
-    st, st_c = m.init((4, 2), device=dev), m.init((4, 2))
+    st, st_c = m.init((4, 2), device=dev), m.init((4, 2), device="cpu")
     x4_dev = torch.as_tensor(x4, device=dev)
     reset_counts()
     for i in range(FS // 1000):
@@ -501,6 +694,75 @@ def main():
     print(f"phase main: ok: dBTPstereo {FS // 1000} x 1000-sample blocks (104-sample tail) "
           f"on streams 0-3, (ballistics, truepeak) launches {got}; vs CPU {d:.3g} dB")
 
+    # the statistics meters, created and initialised with no device
+    # argument: their state must land on the card
+    def tensors_of(state):
+        return [t for f in dataclasses.fields(state) for v in (getattr(state, f.name),)
+                for t in (tensors_of(v) if dataclasses.is_dataclass(v) else [v])]
+
+    def first4(d):
+        return {k: (first4(v) if isinstance(v, dict) else v[:4]) for k, v in d.items()}
+
+    bit_launches = 0
+    for name, kw, layout in STATS:
+        m = meters_lv2_torch.create(name, FS, **kw)
+        st = m.init((B_MAIN,))
+        if not all(t.is_cuda for t in tensors_of(st)):
+            fail(f"main path {name}: init() without a device did not put the state on CUDA")
+        reset_counts()
+        for i in range(N_STATS):
+            st = m.update(st, stats_input(blocks_dev[i % len(blocks_dev)], layout))
+            if i == len(blocks) - 1:
+                st12 = st
+        out, st = m.read(st)
+        torch.cuda.synchronize()
+        got = (ballistics_core.launch_count, truepeak_fused.launch_count,
+               bitmeter_stats.launch_count, r128_fused.launch_count)
+        want = (0, N_STATS if layout == "stereo" else 0, N_STATS if name == "bitmeter" else 0, 0)
+        if got != want:
+            fail(f"main path {name}: (ballistics, truepeak, bitmeter, r128) launches {got}, "
+                 f"expected {want}")
+        tp_launches += got[1]
+        bit_launches += got[2]
+        for k, v in out.items():
+            if v.shape[0] != B_MAIN or (v.is_floating_point() and not bool(torch.isfinite(v).all())):
+                fail(f"main path {name} readout {k} not finite or not of {B_MAIN} streams")
+        out12, st12 = m.read(st12)
+        ref_state, ref_out = cpu_runs[name, tuple(kw.items()), "main"].get(timeout=900)
+        worst, errs = compare_stats(
+            name, first4(state_to_numpy(st12)), {k: v[:4].cpu().numpy() for k, v in out12.items()},
+            ref_state, ref_out)
+        if errs:
+            fail(f"main path {name} {kw}: card vs CPU: {'; '.join(errs)}")
+        tag = name + ("(reference_oor_count)" if kw else "")
+        first = ", ".join(f"{k}[0] {v.reshape(-1)[0].item():.6g}" for k, v in out.items()
+                          if v[0].numel() == 1 or v.ndim == 2 and v.shape[1] <= 2)
+        print(f"phase main: ok: {tag} {N_STATS} x 1 s blocks at B={B_MAIN}, state on "
+              f"{tensors_of(st)[0].device}, (ballistics, "
+              f"truepeak, bitmeter, r128) launches {got}; {first}; streams 0-3 after "
+              f"{len(blocks)} blocks vs CPU: exact where exact, worst readout {worst:.3g} dB")
+
+    # NaN / +-Inf samples: the card must bin and count them as the CPU does
+    xs_nan = [torch.as_tensor(b, device=dev) for b in nan_blocks()]
+    for name, kw, layout in STATS:
+        if name not in ("dr14stereo", "SigDistHist"):
+            continue
+        m = meters_lv2_torch.create(name, FS, **kw)
+        st = m.init((4,))
+        for xb in xs_nan:
+            st = m.update(st, stats_input(xb, layout))
+        out, st = m.read(st)
+        ref_state, ref_out = cpu_runs[name, tuple(kw.items()), "nan"].get(timeout=900)
+        worst, errs = compare_stats(name, state_to_numpy(st),
+                                    {k: v.cpu().numpy() for k, v in out.items()},
+                                    ref_state, ref_out)
+        if errs:
+            fail(f"NaN/Inf stream {name} {kw}: card vs CPU: {'; '.join(errs)}")
+        print(f"phase main: ok: NaN/+-Inf stream through {name}"
+              f"{'(reference_oor_count)' if kw else ''}: card equals CPU "
+              f"(worst readout {worst:.3g} dB)")
+    stop_workers()
+
     # -- 5. golden fixtures -------------------------------------------------
     gw = []
     for name in ("ebur128_aligned_mix.json", "ebur128_mix.json"):
@@ -520,6 +782,26 @@ def main():
         gw.append(f"{prefix} {n} values worst {worst:.3g}")
     print(f"phase golden: ok: ballistics families, whole fixtures (dB; stcorr absolute): "
           f"{'; '.join(gw)}")
+    import test_torch_golden_stats as gs
+
+    gw = []
+    try:
+        for prefix in gs.DR_PREFIXES:
+            worst, n = gs.run_dr14(prefix, make_signal, device=dev)
+            gw.append(f"{prefix} {n} values worst {worst:.3g} dB")
+        worst, n = gs.run_tpnrms(make_signal, device=dev)
+        gw.append(f"tpnrms {n} values worst {worst:.3g} dB")
+        var = max(gs.run_sigdist("sigdist", make_signal, device=dev))
+        quirk = gs.run_sigdist("sigdist_oor", make_signal, device=dev, reference_oor_count=True)
+        plain = gs.run_sigdist("sigdist_oor", make_signal, device=dev)
+        if not (var <= 1e-3 and all(q <= 1e-5 and p > 30 * q for q, p in zip(quirk, plain))):
+            fail(f"golden sigdist: hist_var rel {var}, oor quirk {quirk}, plain {plain}")
+        gw.append(f"sigdist hist_var rel {var:.3g}; sigdist_oor quirk {max(quirk):.3g}, "
+                  f"plain {min(plain):.3g}")
+        gw.append(f"bitmeter {gs.run_bitmeter(make_signal, device=dev)} fixtures exact")
+    except AssertionError as e:
+        fail(f"golden statistics: {e}")
+    print(f"phase golden: ok: statistics fixtures, whole, true peak included: {'; '.join(gw)}")
 
     # -- 6. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
@@ -559,7 +841,7 @@ def main():
 
     # ballistics and truepeak_fused at the main-path shape; the plain
     # versions loop in Python over 12,000 / 48,000 groups (seconds a call),
-    # so they run 1 warmup + 2 timed calls, between two kernel turns
+    # so they run one timed call, between two kernel turns
     t_abs = torch.abs(blocks_dev[0]).reshape(2 * B_MAIN, FS)
     x_tp = blocks_dev[0].reshape(2 * B_MAIN, FS)
     h0 = torch.zeros((2 * B_MAIN, 47), device=dev)
@@ -574,12 +856,24 @@ def main():
          lambda: truepeak_fused.truepeak_fused_reference(x_tp, h0, *zs, **w_tp)),
     ]:
         k1 = cuda_ms(kern, 10)
-        pl = cuda_ms(plain, 2, warmup=1)
+        pl = cuda_ms(plain, 1, warmup=0)
         k2 = cuda_ms(kern, 10)
         times[name] = (statistics.mean([k1, k2]), pl)
         print(f"phase times: {name} kernel {times[name][0]:.4f} ms (medians {[k1, k2]}), "
-              f"plain version {pl:.1f} ms (median of 2 after 1 warmup) at N={2 * B_MAIN} "
-              f"T={FS} [{gpu}]")
+              f"plain version {pl:.1f} ms (one call) at N={2 * B_MAIN} T={FS} [{gpu}]")
+    # bitmeter_stats at the main-path shape: plain, kernel, kernel, plain
+    x_bit = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (B_MAIN, FS), dtype=np.float32) * np.float32(0.1), device=dev)
+    ms_k, ms_p = [], []
+    for w in "pkkp":
+        if w == "k":
+            ms_k.append(cuda_ms(lambda: bitmeter_stats.bitmeter_stats(x_bit), 20))
+        else:
+            ms_p.append(cuda_ms(lambda: bitmeter_stats.bitmeter_stats_reference(x_bit), 3))
+    times["bitmeter_stats"] = (statistics.mean(ms_k), statistics.mean(ms_p))
+    print(f"phase times: bitmeter_stats kernel {times['bitmeter_stats'][0]:.4f} ms (medians "
+          f"{ms_k}), plain version {times['bitmeter_stats'][1]:.4f} ms (medians {ms_p}) at "
+          f"N={B_MAIN} T={FS} [{gpu}]")
     # the ballistics kernel as rows grow: three 32-row CTAs fit on an SM,
     # so up to 132 * 96 = 12,672 rows run in one wave
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -611,6 +905,47 @@ def main():
         print(f"phase times: {name} {B_MAIN * n_chunks / min(runs):.1f} x-realtime (best of "
               f"{len(runs)}: {[round(r, 4) for r in runs]} s for {n_chunks} x 1 s blocks at "
               f"B={B_MAIN}, {min(runs) / n_chunks * 1e3:.3f} ms per update) [{gpu}]")
+    for name, kw, layout in STATS:
+        m = meters_lv2_torch.create(name, FS, **kw)
+        runs = []
+        for _ in range(2):
+            st = m.update(m.init((B_MAIN,)), stats_input(blocks_dev[0], layout))  # warm
+            st = m.init((B_MAIN,))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(N_STATS):
+                st = m.update(st, stats_input(blocks_dev[i % len(blocks_dev)], layout))
+            out, _ = m.read(st)
+            torch.cuda.synchronize()
+            [v.cpu() for v in out.values()]
+            runs.append(time.perf_counter() - t0)
+        tag = name + ("(reference_oor_count)" if kw else "")
+        print(f"phase times: {tag} {B_MAIN * N_STATS / min(runs):.1f} x-realtime (best of "
+              f"{len(runs)}: {[round(r, 4) for r in runs]} s for {N_STATS} x 1 s blocks at "
+              f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update) [{gpu}]")
+
+    # least times on the card (H100 SXM peaks), from this run's shapes:
+    # bytes = each input read once and each output written once; FLOPs per
+    # sample as counted in PERF.md
+    def bound(nbytes, flops):
+        b, f = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+        return (b, "bytes") if b >= f else (f, "operations")
+
+    n_r128 = B_MAIN * 2 * FS  # samples at the main-path shape
+    n_rows = 2 * B_MAIN * FS  # ballistics / truepeak_fused samples
+    bounds = {
+        # x in, p out; FIR 2*4*48 + block LTI 2*128 + state maps 16 + 7
+        "r128_fused": bound(4 * n_r128 + 4 * B_MAIN * FS, 663 * n_r128),
+        # t in; 9 fp32 operations a sample (two attacks of 4, release, max)
+        "ballistics": bound(4 * n_rows, 9 * n_rows),
+        # x in; FIR 2*4*48, |.|, and 4 ballistics steps of 9
+        "truepeak_fused": bound(4 * n_rows, (2 * 4 * 48 + 4 + 4 * 9) * n_rows),
+        # x in, the counters out; the work is integer, which the peak
+        # table does not rate, so the bound is the bytes
+        "bitmeter_stats": bound(4 * B_MAIN * FS + 4 * B_MAIN * (2 * 280 + 23 + 5 + 2), 0),
+    }
+    for name, (b, by) in bounds.items():
+        print(f"phase times: {name} bound {b:.4f} ms ({by}) [{gpu}]")
 
     for mod in ("jax", "meters_lv2_tpu"):
         if mod in sys.modules:
@@ -624,6 +959,9 @@ def main():
         "max_abs_err": main_err,  # p at the main-path shape, vs plain version
         "ms": ms_kernel,
         "plain_ms": ms_plain,
+        "bound_ms": bounds["r128_fused"][0],
+        "bound_by": bounds["r128_fused"][1],
+        "library_ms": None,
     }, {
         "name": "ballistics",
         "route": "cuda",
@@ -633,6 +971,9 @@ def main():
         "max_abs_err": ball_err,  # all outputs at the main-path shape
         "ms": times["ballistics"][0],
         "plain_ms": times["ballistics"][1],
+        "bound_ms": bounds["ballistics"][0],
+        "bound_by": bounds["ballistics"][1],
+        "library_ms": None,
     }, {
         "name": "truepeak_fused",
         "route": "cuda",
@@ -642,6 +983,21 @@ def main():
         "max_abs_err": tp_err,  # z1, z2, m, p at the main-path shape
         "ms": times["truepeak_fused"][0],
         "plain_ms": times["truepeak_fused"][1],
+        "bound_ms": bounds["truepeak_fused"][0],
+        "bound_by": bounds["truepeak_fused"][1],
+        "library_ms": None,
+    }, {
+        "name": "bitmeter_stats",
+        "route": "cuda",
+        "source": "meters_lv2_torch/csrc/bitmeter_stats.cu",
+        "replaces": "meters_lv2_tpu/ops/pallas_bitmeter.py:179",
+        "launches": bit_launches,
+        "max_abs_err": bit_err,  # every field at the main-path shape
+        "ms": times["bitmeter_stats"][0],
+        "plain_ms": times["bitmeter_stats"][1],
+        "bound_ms": bounds["bitmeter_stats"][0],
+        "bound_by": bounds["bitmeter_stats"][1],
+        "library_ms": None,
     }]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -22,11 +22,7 @@ _REGISTRY: dict[str, Callable[..., Any]] = {}
 # Meters of the JAX package (meters_lv2_tpu.models) that the port does not
 # have yet; create() names them in a NotImplementedError.
 NOT_YET_PORTED = frozenset(
-    [
-        "SigDistHist", "TPnRMSmono", "TPnRMSstereo", "bitmeter", "dr14mono",
-        "dr14stereo", "goniometer", "phasewheel", "spectr30mono",
-        "spectr30stereo", "stereoscope",
-    ]
+    ["goniometer", "phasewheel", "spectr30mono", "spectr30stereo", "stereoscope"]
     + [f"surround{n}" for n in range(3, 9)]
 )
 

@@ -64,7 +64,7 @@ class CorrelationMeter:
         wv, decay = self._ema_weights(prods.shape[-1], prods.device)
         return zp0 * decay + torch.matmul(prods, wv)
 
-    def init(self, batch_shape=(), device="cpu") -> CorState:
+    def init(self, batch_shape=(), device="cuda") -> CorState:
         batch_shape = tuple(batch_shape)
         z1 = torch.zeros((*batch_shape, 1), dtype=torch.float32, device=device)
         return CorState(

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import design, lti, r128_fused, resample, segment
+from ..ops.hist import float_to_int32
 from .base import register
 
 HIST_BINS = 751
@@ -96,13 +97,6 @@ def _lufs(s: torch.Tensor, w: int) -> torch.Tensor:
     return torch.where(torch.isfinite(v) & (v >= -200.0), v, -200.0)
 
 
-def _to_int32(v: torch.Tensor) -> torch.Tensor:
-    """floor-ed float -> int32 for bin arithmetic.  Clamping first keeps
-    -inf/huge values defined (the JAX cast saturates); every caller clips
-    the result to [0, 750] anyway."""
-    return torch.clamp(v, -1.0e6, 1.0e6).to(_I32)
-
-
 @register("EBUr128")
 class EbuR128Meter:
     """Full R128 meter; channels C in {1, 2, 5} (ebu_r128_proc.h:26)."""
@@ -140,7 +134,7 @@ class EbuR128Meter:
 
     # -- lifecycle ----------------------------------------------------------
 
-    def init(self, batch_shape=(), device="cpu") -> EbuR128State:
+    def init(self, batch_shape=(), device="cuda") -> EbuR128State:
         batch_shape = tuple(batch_shape)
 
         def f(*s, value=0.0, dtype=_F32):
@@ -513,7 +507,7 @@ class EbuR128Meter:
         s0, n0 = self._integrate_from(state.hist_m, torch.zeros_like(state.count_m))
         l0 = 10.0 * torch.log10(s0 / torch.clamp_min(n0, 1.0))
         th = l0 - 10.0
-        k = _to_int32(torch.floor(10.0 * l0 + 0.5)) + 600
+        k = float_to_int32(torch.floor(10.0 * l0 + 0.5)) + 600
         k = torch.clamp(k, 0, HIST_BINS - 1)
         s1, n1 = self._integrate_from(state.hist_m, k)
         li = 10.0 * torch.log10(s1 / torch.clamp_min(n1, 1.0))
@@ -528,7 +522,7 @@ class EbuR128Meter:
         s0, n0 = self._integrate_from(state.hist_s, torch.zeros_like(state.count_s))
         l0 = 10.0 * torch.log10(s0 / torch.clamp_min(n0, 1.0))
         th = l0 - 20.0
-        k = _to_int32(torch.floor(10.0 * l0 + 0.5)) + 500
+        k = float_to_int32(torch.floor(10.0 * l0 + 0.5)) + 500
         k = torch.clamp(k, 0, HIST_BINS - 1)
         bins = torch.arange(HIST_BINS, device=state.hist_s.device)
         h = torch.where(bins >= k[..., None], state.hist_s, 0)

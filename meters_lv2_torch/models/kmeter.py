@@ -44,7 +44,7 @@ class KMeter:
         self.hold = hold
         self.sys = lti.grouped4_smoother_system(omega)
 
-    def init(self, batch_shape=(), device="cpu") -> KMeterState:
+    def init(self, batch_shape=(), device="cuda") -> KMeterState:
         batch_shape = tuple(batch_shape)
 
         def z():

@@ -52,7 +52,7 @@ class VUMeter:
         self.g = g
         self.sys = lti.vu_grouped4_system(w)
 
-    def init(self, batch_shape=(), device="cpu") -> VUState:
+    def init(self, batch_shape=(), device="cuda") -> VUState:
         batch_shape = tuple(batch_shape)
         return VUState(
             z=torch.zeros((*batch_shape, 2), dtype=torch.float32, device=device),
@@ -93,7 +93,7 @@ class _PPMMeter:
         self.fs = float(fs)
         self.coeffs = coeffs
 
-    def init(self, batch_shape=(), device="cpu") -> PPMState:
+    def init(self, batch_shape=(), device="cuda") -> PPMState:
         return bal.ppm_init(batch_shape, device)
 
     def update(self, state: PPMState, x: torch.Tensor) -> PPMState:
@@ -150,7 +150,7 @@ class BBCMidSideMeter:
         self.fs = float(fs)
         self.coeffs = design.iec2_ppm(fs)
 
-    def init(self, batch_shape=(), device="cpu") -> BBCMSState:
+    def init(self, batch_shape=(), device="cuda") -> BBCMSState:
         return BBCMSState(
             mid=bal.ppm_init(batch_shape, device),
             side=bal.ppm_init(batch_shape, device),

@@ -38,7 +38,7 @@ class TruePeakMeter:
         self.fs = float(fs)
         self.coeffs = design.true_peak_ballistics(fs)
 
-    def init(self, batch_shape=(), device="cpu") -> TruePeakMeterState:
+    def init(self, batch_shape=(), device="cuda") -> TruePeakMeterState:
         batch_shape = tuple(batch_shape)
         return TruePeakMeterState(
             hist=torch.zeros((*batch_shape, 47), dtype=torch.float32, device=device),

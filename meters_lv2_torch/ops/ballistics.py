@@ -41,7 +41,7 @@ class PPMState:
     res: torch.Tensor  # bool: max was read, restart accumulation
 
 
-def ppm_init(batch_shape=(), device="cpu") -> PPMState:
+def ppm_init(batch_shape=(), device="cuda") -> PPMState:
     z = torch.zeros(tuple(batch_shape), dtype=torch.float32, device=device)
     return PPMState(
         z1=z, z2=z.clone(), m=z.clone(),
@@ -109,7 +109,7 @@ class TruePeakState:
     res: torch.Tensor
 
 
-def true_peak_init(batch_shape=(), device="cpu") -> TruePeakState:
+def true_peak_init(batch_shape=(), device="cuda") -> TruePeakState:
     z = torch.zeros(tuple(batch_shape), dtype=torch.float32, device=device)
     return TruePeakState(
         z1=z, z2=z.clone(), m=z.clone(), p=z.clone(),

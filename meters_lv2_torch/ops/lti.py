@@ -97,7 +97,7 @@ class LTIBlockOp:
         return self._on_device[device]
 
 
-def block_op_tensors(op, device="cpu") -> BlockOpTensors:
+def block_op_tensors(op, device="cuda") -> BlockOpTensors:
     """The kmat/sy/at/g leaves of a block operator of either package (any
     object with those numpy attributes) as float32 tensors on ``device``."""
     return BlockOpTensors(
@@ -246,7 +246,7 @@ class LTISystem:
             )
         return self._ops[block]
 
-    def init(self, batch_shape=(), device="cpu") -> torch.Tensor:
+    def init(self, batch_shape=(), device="cuda") -> torch.Tensor:
         return torch.zeros(
             (*batch_shape, self.d), dtype=torch.float32, device=device
         )

@@ -148,6 +148,14 @@ def kernels() -> ctypes.CDLL:
             + [vp] * 5  # z1, z2, m, p, hist out (device)
             + [vp]  # cudaStream_t
         )
+        f = lib.bitmeter_stats_launch
+        f.restype = ci
+        f.argtypes = (
+            [vp, ci]  # x (device), row stride
+            + [ci] * 2  # N, T
+            + [vp] * 6  # hit, one, dset, flags, vmin, vmax (device, pre-filled)
+            + [vp]  # cudaStream_t
+        )
         lib.meters_cuda_error_string.restype = ctypes.c_char_p
         lib.meters_cuda_error_string.argtypes = [ci]
         _lib = lib

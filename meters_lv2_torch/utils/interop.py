@@ -5,7 +5,8 @@ host-built operator matrices.  These helpers move both as numpy arrays, so
 a state taken from ``meters_lv2_tpu`` (``np.asarray`` of each leaf) can seed
 the port mid-stream and the two can be compared leaf by leaf.  A state is a
 dict of its fields; a field that is itself a state (``BBCMSState.mid``,
-``TruePeakMeterState.bal``) is a nested dict.  Nothing here imports jax.
+``TruePeakMeterState.bal``, ``DR14State.km`` and ``.tp``) is a nested
+dict.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..models.ebur128 import EbuR128State
 from ..ops.lti import block_op_tensors as block_op_to_torch  # noqa: F401
 
 
-def state_from_numpy(arrays: dict, device="cpu", cls: type = EbuR128State):
+def state_from_numpy(arrays: dict, device="cuda", cls: type = EbuR128State):
     """A state of class ``cls`` (EbuR128State unless given) from a dict
     holding every field as an array, or as a nested dict for a field that
     is a state class itself.

@@ -227,8 +227,8 @@ def test_ppm_and_true_peak_ops_match_jax():
     rng = np.random.default_rng(12)
     c_t, c_j = t_design.iec2_ppm(48000), j_design.iec2_ppm(48000)
     tp_t, tp_j = t_design.true_peak_ballistics(48000), j_design.true_peak_ballistics(48000)
-    ts, js = t_bal.ppm_init((2, 3)), j_bal.ppm_init((2, 3))
-    tt, jt = t_bal.true_peak_init((2, 3)), j_bal.true_peak_init((2, 3))
+    ts, js = t_bal.ppm_init((2, 3), device="cpu"), j_bal.ppm_init((2, 3))
+    tt, jt = t_bal.true_peak_init((2, 3), device="cpu"), j_bal.true_peak_init((2, 3))
     for i in range(3):
         x = np.abs(rng.standard_normal((2, 3, 256)) * (3.0 if i == 0 else 0.2)).astype(np.float32)
         ts, js = t_bal.ppm_update(c_t, ts, torch.from_numpy(x)), j_bal.ppm_update(c_j, js, jnp.asarray(x))

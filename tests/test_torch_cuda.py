@@ -13,6 +13,9 @@ ballistics: bit-exact (the same fp32 operations in the same order).
 truepeak_fused: the history bit-exact, z1/z2/m/p within 1e-5 relative (the
 FIR sums its products in another order than the plain version's block
 matmul; the chain itself adds nothing).
+bitmeter_stats: every field exact (integer counts, min/max of the same
+floats).  The statistics meters, card against CPU: histograms and counters
+exact, float leaves within 1e-5 of their scale.
 """
 
 import numpy as np
@@ -20,7 +23,8 @@ import pytest
 import torch
 
 import meters_lv2_torch
-from meters_lv2_torch.ops import ballistics_core, design, lti, r128_fused, truepeak_fused
+from meters_lv2_torch.ops import (
+    ballistics_core, bitmeter_stats, design, lti, r128_fused, truepeak_fused)
 
 pytestmark = pytest.mark.gpu
 
@@ -77,7 +81,7 @@ def test_meter_on_card_matches_cpu(cuda):
     """Bulk through the kernel plus a plain tail (T = 2400 = 18*128 + 96)."""
     m = meters_lv2_torch.create("EBUr128", 48000, nchan=2)
     rng = np.random.default_rng(3)
-    sg, sc = m.init((2,), device=cuda), m.init((2,))
+    sg, sc = m.init((2,), device=cuda), m.init((2,), device="cpu")
     n0 = r128_fused.launch_count
     for _ in range(150):
         x = (0.1 * rng.standard_normal((2, 2, 2400))).astype(np.float32)
@@ -151,8 +155,8 @@ def test_ballistics_meters_on_card_match_cpu(cuda):
     on card readouts."""
     rng = np.random.default_rng(8)
     tp, m6 = meters_lv2_torch.create("dBTPstereo", 48000), meters_lv2_torch.create("BBCM6", 48000)
-    tg, tc = tp.init((2, 2), device=cuda), tp.init((2, 2))
-    mg, mc = m6.init((2,), device=cuda), m6.init((2,))
+    tg, tc = tp.init((2, 2), device=cuda), tp.init((2, 2), device="cpu")
+    mg, mc = m6.init((2,), device=cuda), m6.init((2,), device="cpu")
     nt, nb = truepeak_fused.launch_count, ballistics_core.launch_count
     for i in range(6):
         x = (0.2 * rng.standard_normal((2, 2, 1000))).astype(np.float32)
@@ -167,3 +171,71 @@ def test_ballistics_meters_on_card_match_cpu(cuda):
         for k in oc:
             db = (20 * torch.log10(og[k].cpu() / oc[k])).abs().max().item()
             assert db < 0.01, (k, db)
+
+
+def _bit_rows(rng, N, T, weird):
+    x = (0.1 * rng.standard_normal((N, T))).astype(np.float32)
+    if weird:
+        from signals import make_signal
+
+        w = make_signal("weird_floats", 0.2)
+        x[:2] = np.resize(w, (2, T))
+    return x
+
+
+@pytest.mark.parametrize("N,T,weird,strided", [
+    (3, 2048, True, False), (5, 1000, False, True), (4, 1, False, False),
+    (2, 9000, True, True),  # three chunks, the last partial
+])
+def test_bitmeter_stats_kernel_matches_plain(cuda, N, T, weird, strided):
+    """Every field exact: integer counts are order-free, min/max exact."""
+    x = _bit_rows(np.random.default_rng(N + T), N, T, weird)
+    xd = torch.as_tensor(np.concatenate([x, x], axis=1) if strided else x, device=cuda)[:, :T]
+    n0 = bitmeter_stats.launch_count
+    got = bitmeter_stats.bitmeter_stats(xd)
+    ref = bitmeter_stats.bitmeter_stats_reference(xd)
+    torch.cuda.synchronize()
+    assert bitmeter_stats.launch_count == n0 + 1
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("name,kw,shape", [
+    ("bitmeter", {}, (2,)), ("SigDistHist", {}, (2,)),
+    ("SigDistHist", {"reference_oor_count": True}, (2,)),
+    ("dr14stereo", {}, (2, 2)), ("dr14mono", {"nchan": 1}, (2, 1)),
+    ("TPnRMSstereo", {}, (2, 2)), ("TPnRMSmono", {"nchan": 1}, (2, 1)),
+])
+def test_statistics_meters_on_card_match_cpu(cuda, name, kw, shape):
+    """fs = 2000 (3 s DR windows in a few blocks), blocks of 1000 and 1024
+    with a NaN and an Inf: histograms and counters exact, levels within
+    1e-5 of their scale."""
+    from meters_lv2_torch.utils.interop import state_to_numpy
+
+    m = meters_lv2_torch.create(name, 2000, **kw)
+    sg, sc = m.init(shape[:1]), m.init(shape[:1], device="cpu")
+    assert sg.time.is_cuda if hasattr(sg, "time") else sg.scnt.is_cuda
+    rng = np.random.default_rng(len(name))
+    nb = bitmeter_stats.launch_count
+    for i in range(20):
+        x = (0.3 * rng.standard_normal((*shape, 1000 if i % 2 else 1024))).astype(np.float32)
+        if i == 9:
+            x[0, ..., 5], x[1, ..., 9] = np.nan, np.inf
+        sg = m.update(sg, torch.as_tensor(x, device=cuda))
+        sc = m.update(sc, torch.from_numpy(x))
+    assert bitmeter_stats.launch_count == nb + (20 if name == "bitmeter" else 0)
+    g, c = state_to_numpy(sg), state_to_numpy(sc)
+
+    def walk(a, b, path):
+        for k in b:
+            if isinstance(b[k], dict):
+                walk(a[k], b[k], f"{path}.{k}")
+            elif b[k].dtype.kind in "ib":
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{path}.{k}")
+            else:
+                f = np.isfinite(b[k])
+                np.testing.assert_array_equal(a[k][~f], b[k][~f], err_msg=f"{path}.{k}")
+                scale = np.abs(b[k][f]).max(initial=0.0)
+                assert np.all(np.abs(a[k][f] - b[k][f]) <= 1e-5 * scale + 1e-30), f"{path}.{k}"
+
+    walk(g, c, name)

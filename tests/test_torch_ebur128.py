@@ -112,7 +112,7 @@ CASES = [
 def test_port_matches_jax_meter(T, flat, opts, n):
     B = 3
     jm, tm = JaxMeter(48000, nchan=2, **opts), TorchMeter(48000, nchan=2, **opts)
-    js, ts = jm.init((B,)), tm.init((B,))
+    js, ts = jm.init((B,)), tm.init((B,), device="cpu")
     upd = jax.jit(lambda s, x: jm.update(s, x, flat=flat))
     for i, x in enumerate(_blocks(n, B, T, seed=T + n)):
         if flat:
@@ -141,7 +141,7 @@ def test_integration_and_radar_controls_match_jax():
     B, T = 2, 4800
     jm = JaxMeter(48000, nchan=2, runtime_radar_speed=True, track_cadence=True)
     tm = TorchMeter(48000, nchan=2, runtime_radar_speed=True, track_cadence=True)
-    js, ts = jm.init((B,)), tm.init((B,))
+    js, ts = jm.init((B,)), tm.init((B,), device="cpu")
     upd = jax.jit(jm.update)
     controls = {
         10: ("integr_pause",), 20: ("integr_start",), 30: ("radar_reset",),
@@ -174,9 +174,9 @@ def test_mid_stream_seed_from_jax_state():
     blocks = list(_blocks(40, B, T, seed=17))
     for x in blocks[:25]:
         js = upd(js, jnp.asarray(x))
-    ts = state_from_numpy(_jax_state_np(js))
+    ts = state_from_numpy(_jax_state_np(js), device="cpu")
     assert_states_match(ts, js)
-    np.testing.assert_equal(state_to_numpy(state_from_numpy(state_to_numpy(ts))),
+    np.testing.assert_equal(state_to_numpy(state_from_numpy(state_to_numpy(ts), device="cpu")),
                             state_to_numpy(ts))
     for x in blocks[25:]:
         js = upd(js, jnp.asarray(x))
@@ -185,11 +185,11 @@ def test_mid_stream_seed_from_jax_state():
     assert_reads_match(tm.read(ts)[0], jm.read(js)[0])
 
     jop = jm.sys.op(128)
-    for k, v in block_op_to_torch(jop)._asdict().items():
+    for k, v in block_op_to_torch(jop, device="cpu")._asdict().items():
         np.testing.assert_array_equal(v.numpy(), getattr(jop, k))
         np.testing.assert_array_equal(v.numpy(), getattr(tm.sys.op(128), k))
     with pytest.raises(KeyError):
-        state_from_numpy({k: v for k, v in _jax_state_np(js).items() if k != "z"})
+        state_from_numpy({k: v for k, v in _jax_state_np(js).items() if k != "z"}, device="cpu")
 
 
 def _fixtures(prefix):
@@ -223,7 +223,7 @@ def test_golden_parity(prefix):
         else:
             x = make_signal(fx["signal"], fx["seconds"], fs=fx["fs"])[: fx["nchan"]]
         xt = torch.from_numpy(x)
-        st = m.init(())
+        st = m.init((), device="cpu")
         mid = iter([r for r in fx["reads"] if "final" not in r])
         final = [r for r in fx["reads"] if r.get("final")][0]
         keys = [("M", "loudness_M"), ("S", "loudness_S")]
@@ -264,7 +264,7 @@ def test_golden_rates_and_block_size(prefix):
     for fx in fxs:
         m = TorchMeter(fx["fs"], nchan=2)
         xt = torch.from_numpy(make_signal(fx["signal"], fx["seconds"], fs=fx["fs"]))
-        st = m.init(())
+        st = m.init((), device="cpu")
         mid = iter([r for r in fx["reads"] if "final" not in r])
         final = [r for r in fx["reads"] if r.get("final")][0]
         blk = fx["block"]
@@ -290,7 +290,7 @@ def test_reference_radar_ring_golden():
     for fx in fxs:
         m = TorchMeter(fx["fs"], nchan=2, reference_radar=True)
         xt = torch.from_numpy(make_signal(fx["signal"], fx["seconds"], fs=fx["fs"]))
-        st = m.init(())
+        st = m.init((), device="cpu")
         blk = fx["block"]
         for b in range(xt.shape[1] // blk):
             st = m.update(st, xt[:, b * blk:(b + 1) * blk])
@@ -313,7 +313,7 @@ def _tone(level_dbfs, seconds, fs=48000, f0=997.0):
 def _whole(*parts):
     """The port meter over the parts, one update each; the readouts."""
     m = TorchMeter(48000, nchan=2)
-    st = m.init(())
+    st = m.init((), device="cpu")
     for x in parts:
         st = m.update(st, torch.from_numpy(x))
     return {k: float(v) for k, v in m.read(st)[0].items() if v.ndim == 0}

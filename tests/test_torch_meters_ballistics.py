@@ -113,7 +113,7 @@ def _read(meter, st):
 @pytest.mark.parametrize("name,batch,extra,tol,scaled", METERS, ids=[m[0] for m in METERS])
 def test_port_meter_matches_jax(name, batch, extra, tol, scaled):
     jmeter, tmeter = jm.create(name, 48000), mt.create(name, 48000)
-    js, ts = jmeter.init(batch), tmeter.init(batch)
+    js, ts = jmeter.init(batch), tmeter.init(batch, device="cpu")
     seeded = None
     for i, x in enumerate(_blocks(SIZES, (*batch, *extra), seed=len(name))):
         js = jmeter.update(js, jnp.asarray(x))
@@ -127,7 +127,7 @@ def test_port_meter_matches_jax(name, batch, extra, tol, scaled):
             if seeded is not None:
                 _, seeded = _read(tmeter, seeded)
         if i == 3:  # a JAX state seeds the port mid-stream
-            seeded = state_from_numpy(_jax_np(js), cls=type(ts))
+            seeded = state_from_numpy(_jax_np(js), device="cpu", cls=type(ts))
             assert_states_close(seeded, js, 0.0, False, "seeded")
         assert_states_close(ts, js, tol, scaled, f"{name} after block {i}")
     assert_states_close(seeded, js, tol, scaled, "seeded at the end")
@@ -141,7 +141,7 @@ def test_bbcm6_s20_matches_jax(per_stream):
     """S20 (side gain -6 -> +14 dB) as a Python bool or as a per-stream
     bool tensor broadcast over time."""
     jmeter, tmeter = jm.create("BBCM6", 48000), mt.create("BBCM6", 48000)
-    js, ts = jmeter.init((3,)), tmeter.init((3,))
+    js, ts = jmeter.init((3,)), tmeter.init((3,), device="cpu")
     for i, x in enumerate(_blocks([1024, 1000, 1024, 64], (3, 2), seed=9)):
         if per_stream:
             s20 = np.array([i % 2 == 0, True, False])
@@ -160,7 +160,7 @@ def test_kmeter_hold_fall_and_reset_peak_match_jax():
     """A peak, then 0.8 s of quiet 1024-sample blocks: the 0.5 s hold runs
     out and the peak falls at 15 dB/s; reset_peak clears the hold only."""
     jmeter, tmeter = jm.create("K20stereo", 48000), mt.create("K20stereo", 48000)
-    js, ts = jmeter.init((2, 2)), tmeter.init((2, 2))
+    js, ts = jmeter.init((2, 2)), tmeter.init((2, 2), device="cpu")
     upd = jax.jit(jmeter.update)
     rng = np.random.default_rng(4)
     held = []
@@ -185,7 +185,7 @@ def test_kmeter_hold_fall_and_reset_peak_match_jax():
 
 def test_truepeak_process_max_and_reset_match_jax():
     jmeter, tmeter = jm.create("dBTPmono", 48000), mt.create("dBTPmono", 48000)
-    js, ts = jmeter.init((3,)), tmeter.init((3,))
+    js, ts = jmeter.init((3,)), tmeter.init((3,), device="cpu")
     x = (0.5 * np.random.default_rng(2).standard_normal((3, 1000))).astype(np.float32)
     jmx, js = jmeter.process_max(js, jnp.asarray(x))
     tmx, ts = tmeter.process_max(ts, torch.from_numpy(x))

@@ -23,8 +23,13 @@ def test_import_pulls_in_no_jax():
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
         "assert not bad, bad\n"
         "meter = m.create('EBUr128', 48000, nchan=2)\n"
-        "st = meter.init((2,))\n"
+        "st = meter.init((2,), device='cpu')\n"
         "assert tuple(st.z.shape) == (2, 2, 4)\n"
+        "import meters_lv2_torch.ops.hist, meters_lv2_torch.ops.bitmeter_stats\n"
+        "import meters_lv2_torch.models.sigdist, meters_lv2_torch.models.bitmeter\n"
+        "import meters_lv2_torch.models.dr14, meters_lv2_torch.utils.interop\n"
+        "for name in ('dr14stereo', 'SigDistHist', 'bitmeter'):\n"
+        "    m.create(name, 48000).init((2,), device='cpu')\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -42,18 +47,19 @@ def test_registry_names_every_jax_meter():
     refused by name with NotImplementedError."""
     from meters_lv2_tpu.models import available as jax_available
 
-    assert set(meters_lv2_torch.available()) == {"EBUr128"} | PORTED_BALLISTICS
+    assert set(meters_lv2_torch.available()) == {"EBUr128"} | PORTED_BALLISTICS | PORTED_STATS
     assert not set(meters_lv2_torch.available()) & torch_base.NOT_YET_PORTED
     assert set(jax_available()) == (
         set(meters_lv2_torch.available()) | torch_base.NOT_YET_PORTED
     )
-    for name in ("dr14mono", "TPnRMSstereo", "spectr30mono", "surround5"):
+    for name in ("goniometer", "stereoscope", "spectr30mono", "surround5"):
         with pytest.raises(NotImplementedError, match=name):
             meters_lv2_torch.create(name, 48000)
     with pytest.raises(KeyError):
         meters_lv2_torch.create("no-such-meter", 48000)
 
 
+PORTED_STATS = {"dr14mono", "dr14stereo", "TPnRMSmono", "TPnRMSstereo", "SigDistHist", "bitmeter"}
 PORTED_BALLISTICS = {
     "dBTPmono", "dBTPstereo", "BBCM6", "COR",
     "K12mono", "K12stereo", "K14mono", "K14stereo", "K20mono", "K20stereo",
@@ -71,7 +77,7 @@ def test_create_ballistics_meter(name):
     m = meters_lv2_torch.create(name, 44100)
     assert type(m).__name__ == type(jax_create(name, 44100)).__name__
     stereo_in = name in ("BBCM6", "COR")
-    st = m.init((2,))
+    st = m.init((2,), device="cpu")
     x = torch.from_numpy(
         (0.1 * np.random.default_rng(0).standard_normal((2, 2, 256) if stereo_in else (2, 256)))
         .astype(np.float32))
