@@ -10,8 +10,8 @@ Phases, each printed on its own line; any failure exits non-zero:
   1. device   the card, its power limit, fp32 matmul precision settings;
   2. build    nvcc builds every kernel from meters_lv2_torch/csrc;
   3. kernels  each kernel (r128_fused, ballistics, truepeak_fused,
-              bitmeter_stats) against its plain PyTorch version on the same
-              card tensors;
+              bitmeter_stats, spectrum_fused) against its plain PyTorch
+              version on the same card tensors;
   4. main     at the bench operating point (B=256 streams of 48 kHz
               stereo, 12 flat 1 s blocks): EbuR128Meter, then dBTPstereo,
               BBCstereo, DINstereo, BBCM6, VUstereo, K20stereo and COR,
@@ -22,15 +22,20 @@ Phases, each printed on its own line; any failure exits non-zero:
               (both modes) and bitmeter (channel 0) over 60 blocks (20 DR
               windows), created and initialised with no device argument,
               streams 0-3 after 12 blocks held against CPU runs, and a
-              NaN/+-Inf stream through sigdist and DR-14 on both;
+              NaN/+-Inf stream through sigdist and DR-14 on both; then
+              spectr30stereo, created and initialised with no device
+              argument, over the 12 blocks with set_speed mid-stream, and
+              in 1000-sample blocks (a 104-sample tail per update through
+              the plain ops), streams 0-3 held against CPU runs;
   5. golden   committed C-reference fixtures streamed on the card: two
-              R128 ones, every fixture of the ballistics families and the
-              14 statistics fixtures (DR-14, TP+RMS, sigdist, bit meter);
+              R128 ones, every fixture of the ballistics families, the 14
+              statistics fixtures (DR-14, TP+RMS, sigdist, bit meter) and
+              the five spectrum fixtures (strict and in-band worst);
   6. times    each kernel vs its plain version, the ballistics kernel alone
               at 4,224 to 33,792 rows, and main-path x-realtime (R128 over
               120 blocks, down from 240 to keep the whole run well inside
-              its time limit; dBTP, BBC, BBC M-6 and the statistics meters
-              over 60).
+              its time limit; dBTP, BBC, BBC M-6, the statistics meters and
+              spectr30stereo over 60).
 
 The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
 sample on the CPU) go to worker processes at the start and are collected in
@@ -92,6 +97,20 @@ COR_TOL = 1e-4  # card vs CPU correlation readout, absolute
 SD_SCALE, SD_FLOOR = 1e-5, 1e-6
 STATS_TOL_DB = 1e-4
 N_STATS = 60  # main-path blocks of the statistics meters (20 DR windows)
+# spectrum_fused, kernel vs plain version: val, block peak and zf each
+# within SPEC_TOL of the leaf's scale (max |x| over the leaf's finite
+# values), with the same NaN and Inf positions.  The kernel runs the
+# display smoother sample by sample, the plain version as blocked Toeplitz
+# products, and the filter products in another order; a numpy emulation of
+# the kernel's arithmetic differs from the plain version by 5.6e-7 of the
+# val scale at B=6, T=512.  spectr30stereo on the card against the CPU:
+# the state of streams 0-3 within SPEC_TOL of each band's scale, the
+# readouts within STATS_TOL_DB (an H100 run measured 1.14e-5 dB over 1 s
+# blocks and 1.91e-5 dB over 1000-sample blocks).
+SPEC_TOL = 1e-5
+# fp32 operations per (sample, band) of the spectrum function: six biquads
+# of 5 MACs, square, smoother (a subtraction and an FMA) and max
+SPEC_OPS = 6 * 5 * 2 + 1 + 3 + 1
 # H100 SXM datasheet peaks: HBM bytes/s, fp32 FLOP/s
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 
@@ -393,6 +412,277 @@ def compare_bitstats(got, ref, tag):
     return err, errs
 
 
+def leaf_err(a, b):
+    """(max |a - b| over b's finite values, b's scale there)."""
+    import torch
+
+    f = torch.isfinite(b)
+    if not bool(f.any()):
+        return 0.0, 0.0
+    return (a - b).abs()[f].max().item(), b.abs()[f].max().item()
+
+
+def compare_spectrum(got, ref, tag):
+    """One spectrum_fused call against the plain version: val, block peak
+    and zf within SPEC_TOL of each leaf's scale, the same non-finite values.
+    Returns (max abs error over the leaves, breaches)."""
+    import torch
+
+    errs, parts, worst = [], [], 0.0
+    for n, a, b in zip(("val", "peak", "zf"), got, ref):
+        if not same_nonfinite(a, b):
+            errs.append(f"{n} non-finite values differ")
+        err, scale = leaf_err(a, b)
+        worst = max(worst, err)
+        f = torch.isfinite(b) & (b != 0)
+        rel = ((a - b).abs()[f] / b.abs()[f]).max().item() if bool(f.any()) else 0.0
+        parts.append(f"{n} err {err:.3g} = {err / scale if scale else 0.0:.3g} of scale, "
+                     f"elementwise rel {rel:.3g}")
+        if err > SPEC_TOL * scale:
+            errs.append(f"{n} err {err:.3g} over {SPEC_TOL} x scale {scale:.3g}")
+    print(f"  spectrum_fused {tag}: {'; '.join(parts)}: "
+          f"{'ok' if not errs else 'FAIL ' + '; '.join(errs)}")
+    return worst, errs
+
+
+def spec_inputs(spec, B, T, seed, dev):
+    """x [B, T] (numpy), and a filter state [B, 30, 12] and smoother value
+    [B, 30] on ``dev`` at a stream's real scale: 0.25 s of noise through
+    the plain banked LTI."""
+    import torch
+
+    g = np.random.default_rng(seed)
+    warm = torch.as_tensor((0.3 * g.standard_normal((B, FS // 4))).astype(np.float32), device=dev)
+    yw, z0 = spec.bank.apply(warm, spec.bank.init((B,), device=dev))
+    v0 = torch.mean(torch.square(yw), dim=-1)
+    x = (0.3 * g.standard_normal((B, T))).astype(np.float32)
+    return x, z0.contiguous(), v0.contiguous()
+
+
+def spec_omega(spec, speed, dev):
+    """The smoother coefficient of ``speed`` as a 0-d tensor on ``dev``."""
+    return spec.set_speed(spec.init((), device=dev), speed).omega
+
+
+def spectrum_kernel_cases(dev):
+    """spectrum_fused against its plain version: the main-path shape, one
+    block, a partial tile of streams, NaN/+-Inf rows, a NaN omega
+    (set_speed(NaN)) and an omega changed between two chained calls.
+    Returns (max abs error at the main-path shape, breaches)."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import spectrum_fused
+
+    spec = meters_lv2_torch.create("spectr30stereo", FS)
+    sop = spec.bank.op(128)
+    failures, spec_err = [], None
+    for tag, B, T, inject, speed in [
+        (f"main-path shape B={B_MAIN} T={FS}", B_MAIN, FS, False, 3.0),
+        ("one block B=4 T=128", 4, 128, False, 3.0),
+        ("B=13 T=1024, a partial tile of streams", 13, 1024, False, 3.0),
+        ("NaN/+-Inf in x, z0 and v0, B=7 T=1024", 7, 1024, True, 3.0),
+        ("NaN omega (set_speed(NaN)), B=5 T=256", 5, 256, False, float("nan")),
+    ]:
+        x, z0, v0 = spec_inputs(spec, B, T, B + T, dev)
+        if inject:
+            x[0, 37], x[1, T - 1], x[2, 0] = np.nan, np.inf, -np.inf
+            x[3, 130], x[3, 200], x[4, 128] = np.inf, -np.inf, np.inf
+            v0[5, 3], v0[5, 4], v0[5, 5] = np.inf, np.nan, -np.inf
+            z0[5, 7, 2] = np.inf
+        xd = torch.as_tensor(x, device=dev)
+        om = spec_omega(spec, speed, dev)
+        got = spectrum_fused.fused_core(xd, z0, v0, om, sop)
+        ref = spectrum_fused.fused_core_reference(xd, z0, v0, om, sop)
+        torch.cuda.synchronize()
+        err, errs = compare_spectrum(got, ref, tag)
+        failures += [f"spectrum_fused {tag}: {e}" for e in errs]
+        if spec_err is None:
+            spec_err = err
+        del got, ref
+    # omega changed between two chained calls (set on the card, no sync)
+    x, z0, v0 = spec_inputs(spec, 8, 1024, 11, dev)
+    x1 = torch.as_tensor(x[:, :512], device=dev)
+    x2 = torch.as_tensor(x[:, 512:], device=dev)
+    om1, om8 = spec_omega(spec, 1.0, dev), spec_omega(spec, 8.0, dev)
+    got = spectrum_fused.fused_core(x1, z0, v0, om1, sop)
+    ref = spectrum_fused.fused_core_reference(x1, z0, v0, om1, sop)
+    got = spectrum_fused.fused_core(x2, got[2], got[0], om8, sop)
+    ref = spectrum_fused.fused_core_reference(x2, ref[2], ref[0], om8, sop)
+    torch.cuda.synchronize()
+    _, errs = compare_spectrum(got, ref, "omega 1 -> 8 between chained calls B=8 T=2x512")
+    failures += [f"spectrum_fused omega change: {e}" for e in errs]
+    return spec_err, failures
+
+
+def spectrum_main(dev, blocks_dev, blocks3, reset_counts):
+    """spectr30stereo, created and initialised with no device argument,
+    over the main-path blocks with set_speed(4) after 6 of them, then on
+    streams 0-3 in 1000-sample blocks with set_speed(NaN) for one block;
+    each run's kernel launches checked and streams 0-3 held against a CPU
+    run.  Returns the two launch counts."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import (
+        ballistics_core, bitmeter_stats, r128_fused, spectrum_fused, truepeak_fused)
+
+    def state_diff(a, b):
+        """Worst error of the card state's streams 0-3 against the CPU
+        state over SPEC_TOL x each band's scale (the max over streams of
+        val and peak, over streams and components of zf), the same
+        non-finite values required."""
+        r = 0.0
+        for k in ("val", "peak", "zf"):
+            x, y = getattr(a, k)[:4].cpu().double(), getattr(b, k).double()
+            if not same_nonfinite(x, y):
+                return float("inf")
+            f = torch.isfinite(y)
+            x, y = torch.where(f, x, 0.0), torch.where(f, y, 0.0)
+            dims = (0, 2) if k == "zf" else (0,)
+            scale = y.abs().amax(dim=dims, keepdim=True)
+            err = (x - y).abs().amax(dim=dims, keepdim=True)
+            ratio = torch.where(scale > 0, err / (SPEC_TOL * scale), 0.0)
+            r = max(r, ratio.max().item())
+        return r
+
+    def db_diff(o, oc):
+        return max((o[k][:4].cpu() - oc[k]).abs().max().item() for k in ("bands", "peaks"))
+
+    spec = meters_lv2_torch.create("spectr30stereo", FS)
+    st = spec.init((B_MAIN,))
+    if not all(getattr(st, f.name).device.type == dev.type for f in dataclasses.fields(st)):
+        fail("main path spectr30stereo: init() without a device did not put the state on the card")
+    st_c = spec.init((4,), device="cpu")
+    reset_counts()
+    for i, xb in enumerate(blocks_dev):
+        if i == 6:
+            st = spec.set_speed(st, 4.0)
+        st = spec.update(st, xb, stereo=True)
+    out, st = spec.read(st)
+    torch.cuda.synchronize()
+    n_main = spectrum_fused.launch_count
+    others = (r128_fused.launch_count, ballistics_core.launch_count,
+              truepeak_fused.launch_count, bitmeter_stats.launch_count)
+    if n_main != len(blocks_dev) or any(others):
+        fail(f"main path spectr30stereo: spectrum_fused launches {n_main} (expected "
+             f"{len(blocks_dev)}), other kernels {others}")
+    for k, v in out.items():
+        if v.shape != (B_MAIN, 30) or not bool(torch.isfinite(v).all()):
+            fail(f"main path spectr30stereo readout {k} not finite of shape ({B_MAIN}, 30)")
+    for i, xb in enumerate(blocks3):
+        if i == 6:
+            st_c = spec.set_speed(st_c, 4.0)
+        st_c = spec.update(st_c, torch.as_tensor(xb[:4]), stereo=True)
+    out_c, st_c = spec.read(st_c)
+    d_db, r_st = db_diff(out, out_c), state_diff(st, st_c)
+    if not (d_db < STATS_TOL_DB and r_st <= 1.0):
+        fail(f"main path spectr30stereo: card vs CPU readouts {d_db} dB, state at "
+             f"{r_st:.3g} x tolerance")
+    print(f"phase main: ok: spectr30stereo {len(blocks_dev)} x 1 s blocks at B={B_MAIN}, state "
+          f"on {st.val.device}, set_speed(4) after 6 blocks, spectrum_fused launches {n_main}; "
+          f"bands[0, 16] {out['bands'][0, 16].item():.4f} dB, peaks[0, 16] "
+          f"{out['peaks'][0, 16].item():.4f} dB; streams 0-3 vs CPU: readouts {d_db:.3g} dB, "
+          f"state {r_st:.3g} x tolerance")
+
+    # 1000-sample blocks: 896 samples through the kernel and a 104-sample
+    # tail through the plain banked LTI and one-pole per update; block
+    # n_nan runs at set_speed(NaN), which must flush val and the peak-hold
+    # on the card as on the CPU, and set_speed(4) then restores the meter
+    n_nan = 36
+    x4 = blocks3[0][:4]
+    x4_dev = torch.as_tensor(x4, device=dev)
+    st, st_c = spec.init((4,), device=dev), spec.init((4,), device="cpu")
+    reset_counts()
+    for i in range(FS // 1000):
+        if i in (n_nan, n_nan + 1):
+            speed = float("nan") if i == n_nan else 4.0
+            st, st_c = spec.set_speed(st, speed), spec.set_speed(st_c, speed)
+        st = spec.update(st, x4_dev[..., i * 1000:(i + 1) * 1000], stereo=True)
+        st_c = spec.update(st_c, torch.as_tensor(x4[..., i * 1000:(i + 1) * 1000]), stereo=True)
+        if i == n_nan:
+            flushed = (bool((st_c.peak == 0).all()) and bool((st_c.val == 1e-20).all())
+                       and torch.equal(st.peak.cpu(), st_c.peak)
+                       and torch.equal(st.val.cpu(), st_c.val))
+            r_nan = state_diff(st, st_c)
+            if not (flushed and r_nan <= 1.0):
+                fail(f"spectr30stereo after set_speed(NaN): val/peak flushed alike {flushed}, "
+                     f"state at {r_nan:.3g} x tolerance")
+    out, st = spec.read(st)
+    torch.cuda.synchronize()
+    n_tail = spectrum_fused.launch_count
+    if n_tail != FS // 1000:
+        fail(f"spectr30stereo 1000-sample blocks: spectrum_fused launches {n_tail}")
+    out_c, st_c = spec.read(st_c)
+    d_db, r_st = db_diff(out, out_c), state_diff(st, st_c)
+    if not (d_db < STATS_TOL_DB and r_st <= 1.0):
+        fail(f"spectr30stereo 1000-sample blocks: card vs CPU readouts {d_db} dB, state at "
+             f"{r_st:.3g} x tolerance")
+    print(f"phase main: ok: spectr30stereo {FS // 1000} x 1000-sample blocks (104-sample tail) "
+          f"on streams 0-3, set_speed(NaN) for block {n_nan} (val and peak-hold flushed alike, "
+          f"filter state {r_nan:.3g} x tolerance), then set_speed(4); spectrum_fused launches "
+          f"{n_tail}; vs CPU: readouts {d_db:.3g} dB, state {r_st:.3g} x tolerance")
+    return n_main, n_tail
+
+
+def spectrum_golden(dev):
+    """The five spectrum fixtures streamed whole on ``dev``."""
+    import test_torch_golden_spectrum as gspec
+    from signals import make_signal
+
+    gw = []
+    for name in gspec.FIXTURES:
+        try:
+            strict, in_band, n = gspec.run_spectrum(name, make_signal, device=dev)
+        except AssertionError as e:
+            fail(f"golden {name}: {e}")
+        gw.append(f"{name} {n} values strict worst {strict:.3g} dB, in-band (> -60 dBFS) "
+                  f"worst {in_band:.3g} dB")
+    print(f"phase golden: ok: spectrum fixtures, whole: {'; '.join(gw)}")
+
+
+def spectrum_times(dev, blocks_dev, gpu):
+    """spectrum_fused against its plain version at the main-path shape
+    (plain, kernel, kernel, plain), and spectr30stereo's x-realtime over 60
+    blocks at B=256.  Returns (kernel ms, plain ms)."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import spectrum_fused
+
+    spec = meters_lv2_torch.create("spectr30stereo", FS)
+    sop = spec.bank.op(128)
+    x, z0, v0 = spec_inputs(spec, B_MAIN, FS, 3, dev)
+    xd = torch.as_tensor(x, device=dev)
+    om = spec_omega(spec, 1.0, dev)
+    ms_k, ms_p = [], []
+    for w in "pkkp":
+        if w == "k":
+            ms_k.append(cuda_ms(lambda: spectrum_fused.fused_core(xd, z0, v0, om, sop), 10))
+        else:
+            ms_p.append(cuda_ms(lambda: spectrum_fused.fused_core_reference(xd, z0, v0, om, sop), 3))
+    ms = (statistics.mean(ms_k), statistics.mean(ms_p))
+    print(f"phase times: spectrum_fused kernel {ms[0]:.4f} ms (medians {ms_k}), plain version "
+          f"{ms[1]:.4f} ms (medians {ms_p}) at B={B_MAIN} T={FS} [{gpu}]")
+    del xd, z0, v0
+    runs = []
+    for _ in range(2):
+        st = spec.update(spec.init((B_MAIN,)), blocks_dev[0], stereo=True)  # warm
+        st = spec.init((B_MAIN,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_STATS):
+            st = spec.update(st, blocks_dev[i % len(blocks_dev)], stereo=True)
+        out, _ = spec.read(st)
+        torch.cuda.synchronize()
+        [v.cpu() for v in out.values()]
+        runs.append(time.perf_counter() - t0)
+    print(f"phase times: spectr30stereo {B_MAIN * N_STATS / min(runs):.1f} x-realtime (best of "
+          f"{len(runs)}: {[round(r, 4) for r in runs]} s for {N_STATS} x 1 s blocks at "
+          f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update) [{gpu}]")
+    return ms
+
+
 POOL = None  # worker processes of the CPU runs
 
 
@@ -416,7 +706,8 @@ def main():
     try:
         import meters_lv2_torch
         from meters_lv2_torch.ops import (
-            ballistics_core, bitmeter_stats, design, lti, r128_fused, truepeak_fused)
+            ballistics_core, bitmeter_stats, design, lti, r128_fused, spectrum_fused,
+            truepeak_fused)
         from meters_lv2_torch.runtime import build
         from meters_lv2_torch.utils.interop import state_to_numpy
     except ImportError as e:
@@ -571,6 +862,8 @@ def main():
         failures += [f"bitmeter_stats {tag}: {e}" for e in errs]
         if bit_err is None:
             bit_err = err
+    spec_err, errs = spectrum_kernel_cases(dev)
+    failures += errs
     if failures:
         fail("kernel vs plain: " + " | ".join(failures))
     print("phase kernels: ok")
@@ -618,6 +911,7 @@ def main():
         ballistics_core.launch_count = 0
         truepeak_fused.launch_count = 0
         bitmeter_stats.launch_count = 0
+        spectrum_fused.launch_count = 0
 
     def counts():
         return ballistics_core.launch_count, truepeak_fused.launch_count
@@ -762,6 +1056,7 @@ def main():
               f"{'(reference_oor_count)' if kw else ''}: card equals CPU "
               f"(worst readout {worst:.3g} dB)")
     stop_workers()
+    spec_main, spec_tail = spectrum_main(dev, blocks_dev, blocks3, reset_counts)
 
     # -- 5. golden fixtures -------------------------------------------------
     gw = []
@@ -802,6 +1097,7 @@ def main():
     except AssertionError as e:
         fail(f"golden statistics: {e}")
     print(f"phase golden: ok: statistics fixtures, whole, true peak included: {'; '.join(gw)}")
+    spectrum_golden(dev)
 
     # -- 6. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
@@ -924,6 +1220,8 @@ def main():
               f"{len(runs)}: {[round(r, 4) for r in runs]} s for {N_STATS} x 1 s blocks at "
               f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update) [{gpu}]")
 
+    times["spectrum_fused"] = spectrum_times(dev, blocks_dev, gpu)
+
     # least times on the card (H100 SXM peaks), from this run's shapes:
     # bytes = each input read once and each output written once; FLOPs per
     # sample as counted in PERF.md
@@ -943,9 +1241,20 @@ def main():
         # x in, the counters out; the work is integer, which the peak
         # table does not rate, so the bound is the bytes
         "bitmeter_stats": bound(4 * B_MAIN * FS + 4 * B_MAIN * (2 * 280 + 23 + 5 + 2), 0),
+        # x in, z0/v0 in and zf/val/peak out; per (sample, band) the
+        # function's own work: six biquads of 5 MACs (60 operations), the
+        # square (1), the smoother v + w (q - v) (3) and the max (1)
+        "spectrum_fused": bound(4 * B_MAIN * FS + 4 * B_MAIN * 30 * (2 * 12 + 3),
+                                SPEC_OPS * B_MAIN * FS * 30),
     }
     for name, (b, by) in bounds.items():
         print(f"phase times: {name} bound {b:.4f} ms ({by}) [{gpu}]")
+    # the blocked form the kernel computes costs more than the function:
+    # the triangular K (8256 MACs per 128 samples: 129 operations a
+    # sample), Sy and G (12 MACs each: 48) and the smoother and max (4)
+    print(f"phase times: spectrum_fused blocked form {181 * B_MAIN * FS * 30 / 1e9:.1f} GFLOP, "
+          f"{181 * B_MAIN * FS * 30 / FP32_FLOPS * 1e3:.4f} ms at peak, {181 / SPEC_OPS:.2f}x "
+          f"the function's {SPEC_OPS} operations a band-sample [{gpu}]")
 
     for mod in ("jax", "meters_lv2_tpu"):
         if mod in sys.modules:
@@ -997,6 +1306,18 @@ def main():
         "plain_ms": times["bitmeter_stats"][1],
         "bound_ms": bounds["bitmeter_stats"][0],
         "bound_by": bounds["bitmeter_stats"][1],
+        "library_ms": None,
+    }, {
+        "name": "spectrum_fused",
+        "route": "cuda",
+        "source": "meters_lv2_torch/csrc/spectrum_fused.cu",
+        "replaces": "meters_lv2_tpu/ops/pallas_spectrum.py:357",
+        "launches": spec_main + spec_tail,
+        "max_abs_err": spec_err,  # val, peak and zf at the main-path shape
+        "ms": times["spectrum_fused"][0],
+        "plain_ms": times["spectrum_fused"][1],
+        "bound_ms": bounds["spectrum_fused"][0],
+        "bound_by": bounds["spectrum_fused"][1],
         "library_ms": None,
     }]}))
     print(gpu)

@@ -169,6 +169,35 @@ def build_lti_block_op(
     )
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TensorBlockOp:
+    """A block operator whose leaves are already tensors on one device
+    (built there from a runtime coefficient, ``one_pole_block_op_traced``)."""
+
+    kmat: torch.Tensor
+    sy: torch.Tensor
+    at: torch.Tensor
+    g: torch.Tensor
+    block: int
+    d: int
+    m: int
+    p: int
+
+    def tensors(self, device) -> BlockOpTensors:
+        if canonical_device(device) != canonical_device(self.kmat.device):
+            raise ValueError(f"operator is on {self.kmat.device}, input on {device}")
+        return BlockOpTensors(self.kmat, self.sy, self.at, self.g)
+
+
+def _mm_state(s: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """State s [..., (NB,) i] @ at [(NB,) i, j].  A banked ``at`` holds one
+    matrix per bank, contracted with the bank axis of s ("...bi,bij->...bj"):
+    a plain matmul would take s's last two axes as one [NB, i] matrix."""
+    if at.ndim == 2:
+        return torch.matmul(s, at)
+    return torch.matmul(s.unsqueeze(-2), at).squeeze(-2)
+
+
 def lti_scan(
     op: LTIBlockOp, u: torch.Tensor, s0: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -182,6 +211,10 @@ def lti_scan(
         gin[k]    = u[k] @ G
         s[k+1]    = s[k] @ A^T + gin[k]
         y[k]      = conv_y[k] + s[k] @ Sy
+
+    A banked operator (leaves with a leading bank axis NB, from
+    ``BankedLTISystem``) takes u [..., NB, T_total, m] and s0 [..., NB, d];
+    the per-block products batch over the bank axis.
 
     Args:
       op: precomputed block operator.
@@ -211,7 +244,7 @@ def lti_scan(
     entry = []
     for k in range(nblk):
         entry.append(s)
-        s = torch.matmul(s, w.at) + gin[..., k, :]
+        s = _mm_state(s, w.at) + gin[..., k, :]
     s_all = torch.stack(entry, dim=-2)  # [..., nblk, d] entry states
 
     y = conv_y + torch.matmul(s_all, w.sy)
@@ -219,6 +252,22 @@ def lti_scan(
     if squeeze:
         y = y[..., 0]
     return y, s
+
+
+def _scan_split(op_of, u: torch.Tensor, s: torch.Tensor, prefer_block: int):
+    """lti_scan over u [..., T, m] as a run of ``prefer_block``-sized blocks
+    plus one remainder block, state chained; ``op_of(n)`` gives the block
+    operator for n samples.  Returns (y [..., T, p], s)."""
+    T = u.shape[-2]
+    main = (T // prefer_block) * prefer_block
+    ys = []
+    if main:
+        y, s = lti_scan(op_of(prefer_block), u[..., :main, :], s)
+        ys.append(y)
+    if T - main:
+        y, s = lti_scan(op_of(T - main), u[..., main:, :], s)
+        ys.append(y)
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=-2)), s
 
 
 class LTISystem:
@@ -258,20 +307,95 @@ class LTISystem:
         squeeze = u.ndim == s0.ndim
         if squeeze:
             u = u[..., None]
-        T = u.shape[-2]
-        main = (T // prefer_block) * prefer_block
-        ys = []
-        s = s0
-        if main:
-            y, s = lti_scan(self.op(prefer_block), u[..., :main, :], s)
-            ys.append(y)
-        if T - main:
-            y, s = lti_scan(self.op(T - main), u[..., main:, :], s)
-            ys.append(y)
-        y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=-2)
+        y, s = _scan_split(self.op, u, s0, prefer_block)
         if squeeze and self.p == 1:
             y = y[..., 0]
         return y, s
+
+
+class BankedLTISystem:
+    """A bank of NB independent same-dimension LTI systems (e.g. the 30
+    IEC 61260 band filters) evaluated together: block operators are stacked
+    along a leading bank axis and the per-block products batch over it.
+
+    apply() semantics match LTISystem.apply with an extra bank axis: input
+    u [..., T] is broadcast to every bank; output y is [..., NB, T];
+    state s is [..., NB, d].
+    """
+
+    def __init__(self, systems: list[tuple]):
+        self.mats = [tuple(np.asarray(m, np.float64) for m in s) for s in systems]
+        d0 = self.mats[0][0].shape[0]
+        assert all(m[0].shape[0] == d0 for m in self.mats)
+        self.nb = len(systems)
+        self.d = d0
+        self.m = self.mats[0][1].shape[1]
+        self.p = self.mats[0][2].shape[0]
+        self._ops: dict[int, LTIBlockOp] = {}
+
+    def op(self, block: int) -> LTIBlockOp:
+        if block not in self._ops:
+            ops = [build_lti_block_op(*m, block) for m in self.mats]
+            self._ops[block] = LTIBlockOp(
+                *(np.stack([getattr(o, k) for o in ops]) for k in BlockOpTensors._fields),
+                block=block, d=self.d, m=self.m, p=self.p,
+            )
+        return self._ops[block]
+
+    def init(self, batch_shape=(), device="cuda") -> torch.Tensor:
+        return torch.zeros(
+            (*batch_shape, self.nb, self.d), dtype=torch.float32, device=device
+        )
+
+    def apply(
+        self, u: torch.Tensor, s0: torch.Tensor, prefer_block: int = 128
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """u: [..., T] (shared across banks); s0: [..., NB, d].
+        Returns (y [..., NB, T], s [..., NB, d])."""
+        ub = u.unsqueeze(-2).expand(*u.shape[:-1], self.nb, u.shape[-1])
+        y, s = _scan_split(self.op, ub.unsqueeze(-1), s0, prefer_block)
+        return y[..., 0], s
+
+
+def one_pole_block_op_traced(omega: torch.Tensor, block: int) -> TensorBlockOp:
+    """Block operator for z' = (1-w) z + w x, y = z', from a runtime omega.
+
+    ``omega`` is a 0-d float32 tensor; the operator is built on its device
+    from it, so a speed change costs neither a rebuild of host constants
+    nor a host sync (the reference changes its display speed through a
+    control port, src/spectrumlv2.c:161-177).  Powers go through
+    exp(k*log1p(-w)) so tiny omegas (slow speeds) don't lose precision to
+    the f32 representation of 1-w.
+    """
+    om = omega.to(torch.float32)
+    dev = om.device
+    l1 = torch.log1p(-om)  # log(1 - w)
+    kk = torch.arange(block + 1, dtype=torch.float32, device=dev)
+    pw = torch.exp(kk * l1)  # (1-w)^k, k = 0..block
+    ar = torch.arange(block, device=dev)
+    idx = ar[:, None] - ar[None, :]
+    kmat = torch.where(
+        idx >= 0, om * torch.exp(idx.to(torch.float32) * l1), torch.zeros((), device=dev)
+    )  # K[i, j] = w (1-w)^{i-j}
+    return TensorBlockOp(
+        kmat=kmat.T.contiguous(),  # stored transposed, as build_lti_block_op does
+        sy=pw[1 : block + 1][None, :],  # C A^i = (1-w)^{i+1}
+        at=pw[block : block + 1][None, :],  # A^block
+        g=(om * torch.flip(pw[:block], [0]))[:, None],  # A^{c-1-j} B
+        block=block, d=1, m=1, p=1,
+    )
+
+
+def one_pole_apply_traced(
+    omega: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, prefer_block: int = 128
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """LTISystem.apply equivalent for the runtime-omega one-pole.
+
+    u: [..., T]; s0: [..., 1]; omega: 0-d tensor on u's device.
+    Returns (y [..., T], s [..., 1])."""
+    y, s = _scan_split(
+        lambda n: one_pole_block_op_traced(omega, n), u[..., None], s0, prefer_block)
+    return y[..., 0], s
 
 
 def one_pole_system(w: float) -> LTISystem:

@@ -156,6 +156,14 @@ def kernels() -> ctypes.CDLL:
             + [vp] * 6  # hit, one, dset, flags, vmin, vmax (device, pre-filled)
             + [vp]  # cudaStream_t
         )
+        f = lib.spectrum_fused_launch
+        f.restype = ci
+        f.argtypes = (
+            [vp] * 8  # x, z0, v0, omega, kmat, sy, at, g (device)
+            + [ci] * 2  # B, T
+            + [vp] * 3  # val, peak, zf (device)
+            + [vp]  # cudaStream_t
+        )
         lib.meters_cuda_error_string.restype = ctypes.c_char_p
         lib.meters_cuda_error_string.argtypes = [ci]
         _lib = lib

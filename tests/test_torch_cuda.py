@@ -16,6 +16,11 @@ matmul; the chain itself adds nothing).
 bitmeter_stats: every field exact (integer counts, min/max of the same
 floats).  The statistics meters, card against CPU: histograms and counters
 exact, float leaves within 1e-5 of their scale.
+spectrum_fused: val, block peak and zf within 1e-5 of each leaf's scale,
+with the same NaN and Inf positions (the kernel's smoother runs sample by
+sample, the plain version's as blocked Toeplitz products; as in
+chip_smoke.py).  spectr30stereo on the card against the CPU: readouts
+within 1e-3 dB.
 """
 
 import numpy as np
@@ -24,7 +29,7 @@ import torch
 
 import meters_lv2_torch
 from meters_lv2_torch.ops import (
-    ballistics_core, bitmeter_stats, design, lti, r128_fused, truepeak_fused)
+    ballistics_core, bitmeter_stats, design, lti, r128_fused, spectrum_fused, truepeak_fused)
 
 pytestmark = pytest.mark.gpu
 
@@ -239,3 +244,96 @@ def test_statistics_meters_on_card_match_cpu(cuda, name, kw, shape):
                 assert np.all(np.abs(a[k][f] - b[k][f]) <= 1e-5 * scale + 1e-30), f"{path}.{k}"
 
     walk(g, c, name)
+
+
+SPEC_TOL = 1e-5
+
+
+def _spectrum_inputs(spec, B, T, seed, device):
+    """x [B, T] and a filter state / smoother value at a stream's scale
+    (0.25 s of noise through the plain bank)."""
+    g = np.random.default_rng(seed)
+    warm = torch.as_tensor((0.3 * g.standard_normal((B, 12000))).astype(np.float32), device=device)
+    yw, z0 = spec.bank.apply(warm, spec.bank.init((B,), device=device))
+    x = (0.3 * g.standard_normal((B, T))).astype(np.float32)
+    return x, z0.contiguous(), torch.mean(torch.square(yw), dim=-1).contiguous()
+
+
+def _assert_spectrum_close(got, ref):
+    for a, b in zip(got, ref):
+        a, b = a.cpu().double(), b.cpu().double()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.isinf(a), torch.isinf(b))
+        f = torch.isfinite(b)
+        if bool(f.any()):
+            assert torch.equal(a[torch.isinf(b)], b[torch.isinf(b)])
+            assert (a - b).abs()[f].max() <= SPEC_TOL * b.abs()[f].max()
+
+
+@pytest.mark.parametrize("B,T,nonfinite,speed", [
+    (8, 1024, False, 3.0), (4, 128, False, 3.0), (13, 768, False, 3.0), (7, 1024, True, 3.0),
+    (5, 256, False, float("nan")),
+])
+def test_spectrum_kernel_matches_plain(cuda, B, T, nonfinite, speed):
+    spec = meters_lv2_torch.create("spectr30stereo", 48000)
+    x, z0, v0 = _spectrum_inputs(spec, B, T, B + T, cuda)
+    if nonfinite:
+        x[0, 37], x[1, T - 1], x[2, 0] = np.nan, np.inf, -np.inf
+        x[3, 130], x[3, 200], x[4, 128] = np.inf, -np.inf, np.inf
+        v0[5, 3], v0[5, 4], v0[5, 5] = np.inf, np.nan, -np.inf
+        z0[5, 7, 2] = np.inf
+    xd = torch.as_tensor(x, device=cuda)
+    om = spec.set_speed(spec.init((), device=cuda), speed).omega
+    op = spec.bank.op(128)
+    n0 = spectrum_fused.launch_count
+    got = spectrum_fused.fused_core(xd, z0, v0, om, op)
+    ref = spectrum_fused.fused_core_reference(xd, z0, v0, om, op)
+    torch.cuda.synchronize()
+    assert spectrum_fused.launch_count == n0 + 1
+    _assert_spectrum_close(got, ref)
+
+
+def test_spectrum_meter_on_card_matches_cpu(cuda):
+    """1000-sample blocks (kernel bulk and a plain tail), set_speed on the
+    card mid-stream, reset_peaks."""
+    m = meters_lv2_torch.create("spectr30stereo", 48000)
+    rng = np.random.default_rng(5)
+    sg, sc = m.init((3,)), m.init((3,), device="cpu")
+    assert sg.zf.is_cuda and sg.omega.is_cuda
+    n0 = spectrum_fused.launch_count
+    for i in range(30):
+        if i == 10:
+            sg, sc = m.set_speed(sg, 6.0), m.set_speed(sc, 6.0)
+        if i == 20:
+            sg, sc = m.reset_peaks(sg), m.reset_peaks(sc)
+        x = (0.2 * rng.standard_normal((3, 2, 1000))).astype(np.float32)
+        sg = m.update(sg, torch.as_tensor(x, device=cuda), stereo=True)
+        sc = m.update(sc, torch.from_numpy(x), stereo=True)
+    assert spectrum_fused.launch_count == n0 + 30
+    og, _ = m.read(sg)
+    oc, _ = m.read(sc)
+    for k in ("bands", "peaks"):
+        assert (og[k].cpu() - oc[k]).abs().max().item() < 1e-3, k
+
+
+def test_spectrum_meter_nan_speed_on_card_matches_cpu(cuda):
+    """set_speed(NaN) then a clean block flushes val and the peak-hold on
+    the card as on the CPU; a finite speed then restores the readouts."""
+    m = meters_lv2_torch.create("spectr30stereo", 48000)
+    rng = np.random.default_rng(6)
+    sg, sc = m.init((3,)), m.init((3,), device="cpu")
+    for i in range(8):
+        if i == 3:
+            sg, sc = m.set_speed(sg, float("nan")), m.set_speed(sc, float("nan"))
+        if i == 4:
+            for a, b in ((sg.val, sc.val), (sg.peak, sc.peak)):
+                assert torch.equal(a.cpu(), b)
+            assert not sc.peak.any()
+            sg, sc = m.set_speed(sg, 2.0), m.set_speed(sc, 2.0)
+        x = (0.2 * rng.standard_normal((3, 2, 1024))).astype(np.float32)
+        sg = m.update(sg, torch.as_tensor(x, device=cuda), stereo=True)
+        sc = m.update(sc, torch.from_numpy(x), stereo=True)
+    og, _ = m.read(sg)
+    oc, _ = m.read(sc)
+    for k in ("bands", "peaks"):
+        assert (og[k].cpu() - oc[k]).abs().max().item() < 1e-3, k

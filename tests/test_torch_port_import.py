@@ -28,7 +28,8 @@ def test_import_pulls_in_no_jax():
         "import meters_lv2_torch.ops.hist, meters_lv2_torch.ops.bitmeter_stats\n"
         "import meters_lv2_torch.models.sigdist, meters_lv2_torch.models.bitmeter\n"
         "import meters_lv2_torch.models.dr14, meters_lv2_torch.utils.interop\n"
-        "for name in ('dr14stereo', 'SigDistHist', 'bitmeter'):\n"
+        "import meters_lv2_torch.models.spectrum, meters_lv2_torch.ops.spectrum_fused\n"
+        "for name in ('dr14stereo', 'SigDistHist', 'bitmeter', 'spectr30stereo'):\n"
         "    m.create(name, 48000).init((2,), device='cpu')\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
         "assert not bad, bad\n"
@@ -47,18 +48,20 @@ def test_registry_names_every_jax_meter():
     refused by name with NotImplementedError."""
     from meters_lv2_tpu.models import available as jax_available
 
-    assert set(meters_lv2_torch.available()) == {"EBUr128"} | PORTED_BALLISTICS | PORTED_STATS
+    assert set(meters_lv2_torch.available()) == (
+        {"EBUr128"} | PORTED_BALLISTICS | PORTED_STATS | PORTED_SPECTRUM)
     assert not set(meters_lv2_torch.available()) & torch_base.NOT_YET_PORTED
     assert set(jax_available()) == (
         set(meters_lv2_torch.available()) | torch_base.NOT_YET_PORTED
     )
-    for name in ("goniometer", "stereoscope", "spectr30mono", "surround5"):
+    for name in ("goniometer", "stereoscope", "phasewheel", "surround5"):
         with pytest.raises(NotImplementedError, match=name):
             meters_lv2_torch.create(name, 48000)
     with pytest.raises(KeyError):
         meters_lv2_torch.create("no-such-meter", 48000)
 
 
+PORTED_SPECTRUM = {"spectr30mono", "spectr30stereo"}
 PORTED_STATS = {"dr14mono", "dr14stereo", "TPnRMSmono", "TPnRMSstereo", "SigDistHist", "bitmeter"}
 PORTED_BALLISTICS = {
     "dBTPmono", "dBTPstereo", "BBCM6", "COR",
