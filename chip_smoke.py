@@ -10,8 +10,8 @@ Phases, each printed on its own line; any failure exits non-zero:
   1. device   the card, its power limit, fp32 matmul precision settings;
   2. build    nvcc builds every kernel from meters_lv2_torch/csrc;
   3. kernels  each kernel (r128_fused, ballistics, truepeak_fused,
-              bitmeter_stats, spectrum_fused) against its plain PyTorch
-              version on the same card tensors;
+              bitmeter_stats, spectrum_fused, surround_fused) against its
+              plain PyTorch version on the same card tensors;
   4. main     at the bench operating point (B=256 streams of 48 kHz
               stereo, 12 flat 1 s blocks): EbuR128Meter, then dBTPstereo,
               BBCstereo, DINstereo, BBCM6, VUstereo, K20stereo and COR,
@@ -26,16 +26,24 @@ Phases, each printed on its own line; any failure exits non-zero:
               spectr30stereo, created and initialised with no device
               argument, over the 12 blocks with set_speed mid-stream, and
               in 1000-sample blocks (a 104-sample tail per update through
-              the plain ops), streams 0-3 held against CPU runs;
+              the plain ops), streams 0-3 held against CPU runs; then
+              surround5 and surround8, created and initialised with no
+              device argument, over the 12 blocks with the surround beds
+              of tests/signals.py derived on the card, and in 1000-sample
+              blocks with runtime pairs set mid-stream, streams 0-3 held
+              against CPU runs;
   5. golden   committed C-reference fixtures streamed on the card: two
               R128 ones, every fixture of the ballistics families, the 14
               statistics fixtures (DR-14, TP+RMS, sigdist, bit meter) and
-              the five spectrum fixtures (strict and in-band worst);
+              the five spectrum fixtures (strict and in-band worst) and
+              the four surround fixtures;
   6. times    each kernel vs its plain version, the ballistics kernel alone
               at 4,224 to 33,792 rows, and main-path x-realtime (R128 over
               120 blocks, down from 240 to keep the whole run well inside
               its time limit; dBTP, BBC, BBC M-6, the statistics meters and
-              spectr30stereo over 60).
+              spectr30stereo, surround5 and surround8 over 60; for the
+              surround meters also the host's enqueue time and the device
+              time of an update under torch.profiler).
 
 The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
 sample on the CPU) go to worker processes at the start and are collected in
@@ -111,6 +119,28 @@ SPEC_TOL = 1e-5
 # fp32 operations per (sample, band) of the spectrum function: six biquads
 # of 5 MACs, square, smoother (a subtraction and an FMA) and max
 SPEC_OPS = 6 * 5 * 2 + 1 + 3 + 1
+# surround_fused, kernel vs plain version: pk bit-exact (fmaxf skips NaN as
+# the plain version's where(isnan, 0, q) max does), km_z per component
+# within SUR_Z_SCALE of its scale (the state chain, as Z_SCALE), zl and
+# pacc within SUR_TOL of each leaf's scale (the kernel runs the lowpass
+# sample by sample and composes the carried state into the pair sums, the
+# plain version as blocked products; an H100 run of this script measured
+# 5.4e-7 of the pacc scale at B=256 C=8 T=48000).
+# surround5/8 on the card against the CPU: level and peak within
+# STATS_TOL_DB, correlation within COR_TOL.
+SUR_Z_SCALE, SUR_TOL = 4e-6, 1e-5
+# fp32 operations of the surround function: per channel-sample the square
+# (1), the peak max (1), x^2 into the smoother's two states (2 MACs: 4),
+# the lowpass (x + eps, then (1 - w) z + w x: 4); per pair-sample the two
+# selections over C channels (2C MACs: 4C), three products (3) and three
+# weighted sums (6)
+SUR_OPS_CHAN = 1 + 1 + 4 + 4
+
+
+def sur_ops_pair(C):
+    return 4 * C + 9
+
+
 # H100 SXM datasheet peaks: HBM bytes/s, fp32 FLOP/s
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 
@@ -230,6 +260,19 @@ def cuda_ms(fn, reps, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timed_call(fn):
+    """(fn(), the CUDA-event ms of that one call)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def same_bits(a, b):
@@ -683,6 +726,286 @@ def spectrum_times(dev, blocks_dev, gpu):
     return ms
 
 
+def surround_blocks(C, blocks):
+    """The C-channel beds of tests/signals.py::make_surround derived on the
+    card from stereo blocks [B, 2, T]: [B, C, T] each."""
+    import torch
+
+    out = []
+    for xb in blocks:
+        l, r = xb[..., 0, :], xb[..., 1, :]
+        chans = [l, r, 0.5 * (l + r), 0.7 * l, 0.6 * r, 0.5 * (l - r), 0.8 * r, 0.65 * l + 0.2 * r]
+        out.append(torch.stack(chans[:C], dim=-2).contiguous())
+    return out
+
+
+def surround_args(C, B, T, seed, dev, pairs=None, inject=False):
+    """Arguments of surround_fused.fused_core on ``dev``: x [B, C, T] of
+    0.3 N(0, 1), carried non-zero K-meter and lowpass states, the routing of
+    ``pairs`` (default: the meter's adjacent pairs), the meter's weights."""
+    import torch
+
+    import meters_lv2_torch
+
+    m = meters_lv2_torch.create(f"surround{C}", FS)
+    g = np.random.default_rng(seed)
+    x = (0.3 * g.standard_normal((B, C, T))).astype(np.float32)
+    if inject:
+        x[0, C - 1, 300], x[1, 1, 700], x[2, 0, 130] = np.nan, np.inf, -np.inf
+    kz = torch.as_tensor((0.01 * g.random((B, C, 2))).astype(np.float32), device=dev)
+    zl = torch.as_tensor((0.05 * g.standard_normal((B, C, 1))).astype(np.float32), device=dev)
+    pr = None if pairs is None else torch.tensor(pairs, dtype=torch.float32, device=dev)
+    wv, _ = m.cor._ema_weights(T, dev)
+    return (torch.as_tensor(x, device=dev), kz, zl, *m._sel(pr, dev), m.km.sys, m.cor.lp,
+            m.cor.w1, wv)
+
+
+def compare_surround(got, ref, tag):
+    """One surround_fused call against the plain version: pk bit-exact,
+    km_z per component within SUR_Z_SCALE of its scale, zl and pacc within
+    SUR_TOL of each leaf's scale; km_z and pk NaN/Inf in the same places,
+    zl and pacc non-finite in the same places.  Returns (max abs error over
+    the leaves, breaches)."""
+    import torch
+
+    errs, parts, worst = [], [], 0.0
+    for n, a, b in zip(("km_z", "zl", "pk", "pacc"), got, ref):
+        a, b = a.double(), b.double()
+        f = torch.isfinite(b)
+        if n in ("km_z", "pk") and not same_nonfinite(a, b):
+            errs.append(f"{n} NaN/Inf values differ")
+        if not torch.equal(torch.isfinite(a), f):
+            errs.append(f"{n} non-finite in other places")
+        err, scale = leaf_err(a, b)
+        worst = max(worst, err)
+        if n == "pk":
+            if not same_bits(a, b):
+                errs.append("pk not bit-exact")
+        elif n == "km_z":
+            zs = torch.where(f, b, 0.0).abs().amax(dim=(0, 1))
+            if bool((torch.where(f, (a - b).abs(), 0.0) > SUR_Z_SCALE * zs).any()):
+                errs.append(f"km_z err {err:.3g} over {SUR_Z_SCALE} x scale {zs.tolist()}")
+        elif err > SUR_TOL * scale:
+            errs.append(f"{n} err {err:.3g} over {SUR_TOL} x scale {scale:.3g}")
+        parts.append(f"{n} err {err:.3g} = {err / scale if scale else 0.0:.3g} of scale")
+    print(f"  surround_fused {tag}: {'; '.join(parts)}: "
+          f"{'ok' if not errs else 'FAIL ' + '; '.join(errs)}")
+    return worst, errs
+
+
+def surround_kernel_cases(dev):
+    """surround_fused against its plain version: B=5 C=5 T=1280 with
+    carried states and runtime pairs, C=5 and C=8 at the main-path shape
+    (surround5's and surround8's), and NaN / +Inf / -Inf samples.  Returns
+    (max abs error at the main-path shapes, breaches)."""
+    import torch
+
+    from meters_lv2_torch.ops import surround_fused
+
+    failures, main_err = [], 0.0
+    for tag, C, B, T, pairs, inject in [
+        ("B=5 C=5 T=1280, pairs 0:0 1:1 0:1 2:3", 5, 5, 1280, [[0, 0], [1, 1], [0, 1], [2, 3]],
+         False),
+        (f"main-path shape B={B_MAIN} C=5 T={FS}", 5, B_MAIN, FS, None, False),
+        (f"main-path shape B={B_MAIN} C=8 T={FS}", 8, B_MAIN, FS, None, False),
+        ("NaN/+Inf/-Inf in x, B=5 C=5 T=1280", 5, 5, 1280, None, True),
+    ]:
+        args = surround_args(C, B, T, B + C, dev, pairs, inject)
+        got = surround_fused.fused_core(*args)
+        ref = surround_fused.fused_core_reference(*args)
+        torch.cuda.synchronize()
+        err, errs = compare_surround(got, ref, tag)
+        failures += [f"surround_fused {tag}: {e}" for e in errs]
+        if B == B_MAIN:
+            main_err = max(main_err, err)
+        del args, got, ref
+    return main_err, failures
+
+
+def surround_readout_diff(out, out_c):
+    """(level/peak dB difference, correlation difference) of the card's
+    streams 0-3 against the CPU run."""
+    d_db = max(level_db_diff(out[k][:4].cpu(), out_c[k]) for k in ("level", "peak"))
+    d_cor = (out["correlation"][:4].cpu() - out_c["correlation"]).abs().max().item()
+    return d_db, d_cor
+
+
+def surround_main(dev, blocks3, reset_counts):
+    """surround5 and surround8, created and initialised with no device
+    argument, over the 12 main-path blocks (channels derived on the card)
+    at B=256, then on streams 0-3 in 1000-sample blocks with the pairs
+    re-routed on the card mid-stream; launches checked, streams 0-3 held
+    against CPU runs.  Returns the launches of the runs."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import (
+        ballistics_core, bitmeter_stats, r128_fused, spectrum_fused, surround_fused,
+        truepeak_fused)
+
+    def others():
+        return (r128_fused.launch_count, ballistics_core.launch_count,
+                truepeak_fused.launch_count, bitmeter_stats.launch_count,
+                spectrum_fused.launch_count)
+
+    pairs = [[0, 0], [1, 1], [0, 1], [2, 3]]
+    launches = 0
+    for name in ("surround5", "surround8"):
+        m = meters_lv2_torch.create(name, FS)
+        C, P = m.nchan, m.npairs
+        st = m.init((B_MAIN,))
+        if not (st.zl.device.type == dev.type and st.km.z.device.type == dev.type):
+            fail(f"main path {name}: init() without a device did not put the state on the card")
+        xs = surround_blocks(C, [torch.as_tensor(b, device=dev) for b in blocks3])
+        reset_counts()
+        for xb in xs:
+            st = m.update(st, xb)
+        out, st = m.read(st)
+        torch.cuda.synchronize()
+        n = surround_fused.launch_count
+        if n != len(xs) or any(others()):
+            fail(f"main path {name}: surround_fused launches {n} (expected {len(xs)}), "
+                 f"other kernels {others()}")
+        launches += n
+        for k, shape in (("level", (B_MAIN, C)), ("peak", (B_MAIN, C)),
+                         ("correlation", (B_MAIN, P))):
+            if out[k].shape != shape or not bool(torch.isfinite(out[k]).all()):
+                fail(f"main path {name} readout {k} not finite of shape {shape}")
+        st_c = m.init((4,), device="cpu")
+        for xb in xs:
+            st_c = m.update(st_c, xb[:4].cpu())
+        out_c, _ = m.read(st_c)
+        d_db, d_cor = surround_readout_diff(out, out_c)
+        if not (d_db < STATS_TOL_DB and d_cor < COR_TOL):
+            fail(f"main path {name}: card vs CPU level/peak {d_db} dB, correlation {d_cor}")
+        print(f"phase main: ok: {name} {len(xs)} x 1 s blocks at B={B_MAIN} (channels derived "
+              f"on the card), state on {st.zl.device}, surround_fused launches {n}; level[0, 0] "
+              f"{out['level'][0, 0].item():.6f}, correlation[0] "
+              f"{[round(v, 6) for v in out['correlation'][0].tolist()]}; streams 0-3 vs CPU: "
+              f"level/peak {d_db:.3g} dB, correlation {d_cor:.3g}")
+
+        # 1000-sample blocks: an 896-sample bulk through the kernel and a
+        # 104-sample tail through the plain ops per update; runtime pairs
+        # on the card from block 20, back to the default pairs from 36
+        x4 = xs[0][:4]
+        x4_c = x4.cpu()
+        st, st_c = m.init((4,)), m.init((4,), device="cpu")
+        pr = torch.tensor(pairs, dtype=torch.float32, device=dev)
+        reset_counts()
+        for i in range(FS // 1000):
+            p = 20 <= i < 36
+            sl = slice(i * 1000, (i + 1) * 1000)
+            st = m.update(st, x4[..., sl], pr if p else None)
+            st_c = m.update(st_c, x4_c[..., sl], pairs if p else None)
+            if i == 35:
+                out, _ = m.read(st)
+                out_c, _ = m.read(st_c)
+                d_mid = surround_readout_diff(out, out_c)
+        out, _ = m.read(st)
+        torch.cuda.synchronize()
+        n = surround_fused.launch_count
+        if n != FS // 1000 or any(others()):
+            fail(f"{name} 1000-sample blocks: surround_fused launches {n}, others {others()}")
+        launches += n
+        out_c, _ = m.read(st_c)
+        d_db, d_cor = surround_readout_diff(out, out_c)
+        if not (max(d_db, d_mid[0]) < STATS_TOL_DB and max(d_cor, d_mid[1]) < COR_TOL):
+            fail(f"{name} 1000-sample blocks: card vs CPU level/peak {d_db} / {d_mid[0]} dB, "
+                 f"correlation {d_cor} / {d_mid[1]}")
+        print(f"phase main: ok: {name} {FS // 1000} x 1000-sample blocks (104-sample tail) on "
+              f"streams 0-3, pairs 0:0 1:1 0:1 2:3 for blocks 20-35; surround_fused launches {n}; "
+              f"vs CPU after block 35: {d_mid[0]:.3g} dB, correlation {d_mid[1]:.3g}; at the "
+              f"end: {d_db:.3g} dB, correlation {d_cor:.3g}")
+        del xs
+    return launches
+
+
+def surround_golden(dev):
+    """The four surround fixtures streamed whole on ``dev``."""
+    import test_torch_golden_surround as gsur
+
+    gw = []
+    for prefix in gsur.PREFIXES:
+        try:
+            worst_db, worst_cor, n = gsur.run_surround(prefix, device=dev)
+        except AssertionError as e:
+            fail(f"golden {prefix}: {e}")
+        gw.append(f"{prefix}_mix {n} values, level/peak worst {worst_db:.3g} dB, correlation "
+                  f"worst {worst_cor:.3g}")
+    print(f"phase golden: ok: surround fixtures, whole: {'; '.join(gw)}")
+
+
+def device_us_per_update(m, st, xs, n=10):
+    """torch.profiler over n updates of meter m: (device µs per update, of
+    it the hand-written kernels' µs).  Device-side events only: an aten
+    op's own row repeats its kernels' time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            st = m.update(st, xs[i % len(xs)])
+        torch.cuda.synchronize()
+    dev_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    total = sum(t for _, t in dev_us)
+    kern = sum(t for k, t in dev_us if "_kernel<" in k and "native" not in k)
+    return total / n, kern / n
+
+
+def surround_times(dev, blocks3, gpu):
+    """surround_fused against its plain version at B=256 T=48000 for C=5
+    and C=8 (plain, kernel, kernel, plain; one call at a time, as the other
+    kernels are timed), and for surround5 and surround8 the x-realtime over
+    60 blocks at B=256, the host's time to enqueue an update and the device
+    time of one (torch.profiler).  Returns {C: (kernel ms, plain ms)}."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import surround_fused
+
+    ms = {}
+    for C in (5, 8):
+        args = surround_args(C, B_MAIN, FS, 7, dev)
+        ms_k, ms_p = [], []
+        for w in "pkkp":
+            if w == "k":
+                ms_k.append(cuda_ms(lambda: surround_fused.fused_core(*args), 10))
+            else:
+                ms_p.append(cuda_ms(lambda: surround_fused.fused_core_reference(*args), 3))
+        ms[C] = (statistics.mean(ms_k), statistics.mean(ms_p))
+        print(f"phase times: surround_fused kernel {ms[C][0]:.4f} ms (medians {ms_k}), plain "
+              f"version {ms[C][1]:.4f} ms (medians {ms_p}) at B={B_MAIN} C={C} P=4 T={FS} [{gpu}]")
+        del args
+    for name in ("surround5", "surround8"):
+        m = meters_lv2_torch.create(name, FS)
+        xs = surround_blocks(m.nchan, [torch.as_tensor(b, device=dev) for b in blocks3])
+        runs, enqueue = [], []
+        for _ in range(2):
+            st = m.update(m.init((B_MAIN,)), xs[0])  # warm
+            st = m.init((B_MAIN,))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(N_STATS):
+                st = m.update(st, xs[i % len(xs)])
+            enqueue.append(time.perf_counter() - t0)
+            out, _ = m.read(st)
+            torch.cuda.synchronize()
+            [v.cpu() for v in out.values()]
+            runs.append(time.perf_counter() - t0)
+        dev_us, kern_us = device_us_per_update(m, st, xs)
+        print(f"phase times: {name} {B_MAIN * N_STATS / min(runs):.1f} x-realtime (best of "
+              f"{len(runs)}: {[round(r, 4) for r in runs]} s for {N_STATS} x 1 s blocks at "
+              f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update); host enqueue "
+              f"{[round(e / N_STATS * 1e3, 3) for e in enqueue]} ms per update; torch.profiler: "
+              f"device time {dev_us:.1f} us per update, surround_fused {kern_us:.1f} us "
+              f"({100 * kern_us / dev_us:.1f} %) [{gpu}]")
+        del xs
+    return ms
+
+
 POOL = None  # worker processes of the CPU runs
 
 
@@ -707,13 +1030,14 @@ def main():
         import meters_lv2_torch
         from meters_lv2_torch.ops import (
             ballistics_core, bitmeter_stats, design, lti, r128_fused, spectrum_fused,
-            truepeak_fused)
+            surround_fused, truepeak_fused)
         from meters_lv2_torch.runtime import build
         from meters_lv2_torch.utils.interop import state_to_numpy
     except ImportError as e:
         fail(f"cannot import meters_lv2_torch ({e}): run from the root of a checkout")
 
     # -- 1. device ----------------------------------------------------------
+    marks = [("start", time.perf_counter())]
     gpu = gpu_line()
     kind = torch.cuda.get_device_name(0)
     if torch.backends.cuda.matmul.allow_tf32:
@@ -798,7 +1122,11 @@ def main():
     def states(N):
         return [np.abs(0.3 * rng.standard_normal(N)).astype(np.float32) for _ in range(4)]
 
+    # the plain versions of ballistics and truepeak_fused loop in Python
+    # over 12,000 / 48,000 groups at the main-path shape (seconds a call):
+    # that comparison's one call, timed, is also their time in phase times
     ball_err = tp_err = None
+    plain_ms = {}
     for tag, N, T, track_peak, inject in [
         ("N=5 T=1024 track_peak=False", 5, 1024, False, False),
         ("N=5 T=1024 track_peak=True", 5, 1024, True, False),
@@ -813,8 +1141,8 @@ def main():
             st[2][1] = np.nan  # a NaN carried max propagates
         args = on_card(t, *st)
         got = ballistics_core.ballistics(*args, **w_ppm, track_peak=track_peak)
-        ref = ballistics_core.ballistics_reference(*args, **w_ppm, track_peak=track_peak)
-        torch.cuda.synchronize()
+        ref, plain_ms["ballistics"] = timed_call(lambda: ballistics_core.ballistics_reference(
+            *args, **w_ppm, track_peak=track_peak))
         err, errs = compare_ballistics(got, ref, tag)
         failures += [f"ballistics {tag}: {e}" for e in errs]
         ball_err = err
@@ -831,8 +1159,8 @@ def main():
             h[3, 10], h[4, 46], h[5, 0] = np.nan, np.inf, -np.inf
         args = on_card(x, h, *st)
         got = truepeak_fused.truepeak_fused(*args, **w_tp)
-        ref = truepeak_fused.truepeak_fused_reference(*args, **w_tp)
-        torch.cuda.synchronize()
+        ref, plain_ms["truepeak_fused"] = timed_call(
+            lambda: truepeak_fused.truepeak_fused_reference(*args, **w_tp))
         err, errs = compare_truepeak(got, ref, tag)
         failures += [f"truepeak_fused {tag}: {e}" for e in errs]
         tp_err = err
@@ -864,9 +1192,12 @@ def main():
             bit_err = err
     spec_err, errs = spectrum_kernel_cases(dev)
     failures += errs
+    sur_err, errs = surround_kernel_cases(dev)
+    failures += errs
     if failures:
         fail("kernel vs plain: " + " | ".join(failures))
     print("phase kernels: ok")
+    marks.append(("device, build and kernels", time.perf_counter()))
 
     # -- 4. main path -------------------------------------------------------
     meter = meters_lv2_torch.create("EBUr128", FS, nchan=2)
@@ -912,6 +1243,7 @@ def main():
         truepeak_fused.launch_count = 0
         bitmeter_stats.launch_count = 0
         spectrum_fused.launch_count = 0
+        surround_fused.launch_count = 0
 
     def counts():
         return ballistics_core.launch_count, truepeak_fused.launch_count
@@ -1057,6 +1389,9 @@ def main():
               f"(worst readout {worst:.3g} dB)")
     stop_workers()
     spec_main, spec_tail = spectrum_main(dev, blocks_dev, blocks3, reset_counts)
+    marks.append(("main before surround", time.perf_counter()))
+    sur_launches = surround_main(dev, blocks3, reset_counts)
+    marks.append(("main surround", time.perf_counter()))
 
     # -- 5. golden fixtures -------------------------------------------------
     gw = []
@@ -1098,6 +1433,9 @@ def main():
         fail(f"golden statistics: {e}")
     print(f"phase golden: ok: statistics fixtures, whole, true peak included: {'; '.join(gw)}")
     spectrum_golden(dev)
+    marks.append(("golden before surround", time.perf_counter()))
+    surround_golden(dev)
+    marks.append(("golden surround", time.perf_counter()))
 
     # -- 6. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
@@ -1136,27 +1474,24 @@ def main():
 
 
     # ballistics and truepeak_fused at the main-path shape; the plain
-    # versions loop in Python over 12,000 / 48,000 groups (seconds a call),
-    # so they run one timed call, between two kernel turns
+    # versions' one call was timed in phase kernels
     t_abs = torch.abs(blocks_dev[0]).reshape(2 * B_MAIN, FS)
     x_tp = blocks_dev[0].reshape(2 * B_MAIN, FS)
     h0 = torch.zeros((2 * B_MAIN, 47), device=dev)
     zs = on_card(*[0.5 * v for v in states(2 * B_MAIN)])
     times = {}
-    for name, kern, plain in [
+    for name, kern in [
         ("ballistics",
-         lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False),
-         lambda: ballistics_core.ballistics_reference(t_abs, *zs, **w_ppm, track_peak=False)),
+         lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False)),
         ("truepeak_fused",
-         lambda: truepeak_fused.truepeak_fused(x_tp, h0, *zs, **w_tp),
-         lambda: truepeak_fused.truepeak_fused_reference(x_tp, h0, *zs, **w_tp)),
+         lambda: truepeak_fused.truepeak_fused(x_tp, h0, *zs, **w_tp)),
     ]:
         k1 = cuda_ms(kern, 10)
-        pl = cuda_ms(plain, 1, warmup=0)
         k2 = cuda_ms(kern, 10)
-        times[name] = (statistics.mean([k1, k2]), pl)
+        times[name] = (statistics.mean([k1, k2]), plain_ms[name])
         print(f"phase times: {name} kernel {times[name][0]:.4f} ms (medians {[k1, k2]}), "
-              f"plain version {pl:.1f} ms (one call) at N={2 * B_MAIN} T={FS} [{gpu}]")
+              f"plain version {plain_ms[name]:.1f} ms (one call, in phase kernels) at "
+              f"N={2 * B_MAIN} T={FS} [{gpu}]")
     # bitmeter_stats at the main-path shape: plain, kernel, kernel, plain
     x_bit = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (B_MAIN, FS), dtype=np.float32) * np.float32(0.1), device=dev)
@@ -1221,6 +1556,12 @@ def main():
               f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update) [{gpu}]")
 
     times["spectrum_fused"] = spectrum_times(dev, blocks_dev, gpu)
+    marks.append(("times before surround", time.perf_counter()))
+    sur_ms = surround_times(dev, blocks3, gpu)
+    times["surround_fused"] = sur_ms[8]
+    marks.append(("times surround", time.perf_counter()))
+    print("phase times: seconds per phase: " + ", ".join(
+        f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
     # least times on the card (H100 SXM peaks), from this run's shapes:
     # bytes = each input read once and each output written once; FLOPs per
@@ -1247,6 +1588,13 @@ def main():
         "spectrum_fused": bound(4 * B_MAIN * FS + 4 * B_MAIN * 30 * (2 * 12 + 3),
                                 SPEC_OPS * B_MAIN * FS * 30),
     }
+    # x in, the K-meter / lowpass states in and out, pk and pacc out; the
+    # function's own work per channel-sample and per pair-sample
+    for C in (5, 8):
+        bounds[f"surround_fused C={C}"] = bound(
+            4 * B_MAIN * C * FS + 4 * B_MAIN * C * (2 * 3 + 1) + 4 * B_MAIN * 4 * 3,
+            B_MAIN * FS * (SUR_OPS_CHAN * C + 4 * sur_ops_pair(C)))
+    bounds["surround_fused"] = bounds["surround_fused C=8"]
     for name, (b, by) in bounds.items():
         print(f"phase times: {name} bound {b:.4f} ms ({by}) [{gpu}]")
     # the blocked form the kernel computes costs more than the function:
@@ -1318,6 +1666,18 @@ def main():
         "plain_ms": times["spectrum_fused"][1],
         "bound_ms": bounds["spectrum_fused"][0],
         "bound_by": bounds["spectrum_fused"][1],
+        "library_ms": None,
+    }, {
+        "name": "surround_fused",
+        "route": "cuda",
+        "source": "meters_lv2_torch/csrc/surround_fused.cu",
+        "replaces": "meters_lv2_tpu/ops/pallas_surround.py:371",
+        "launches": sur_launches,
+        "max_abs_err": sur_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000
+        "ms": times["surround_fused"][0],  # C=8; C=5 is printed in phase times
+        "plain_ms": times["surround_fused"][1],
+        "bound_ms": bounds["surround_fused"][0],
+        "bound_by": bounds["surround_fused"][1],
         "library_ms": None,
     }]}))
     print(gpu)

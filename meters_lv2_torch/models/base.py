@@ -21,10 +21,7 @@ _REGISTRY: dict[str, Callable[..., Any]] = {}
 
 # Meters of the JAX package (meters_lv2_tpu.models) that the port does not
 # have yet; create() names them in a NotImplementedError.
-NOT_YET_PORTED = frozenset(
-    ["goniometer", "phasewheel", "stereoscope"]
-    + [f"surround{n}" for n in range(3, 9)]
-)
+NOT_YET_PORTED = frozenset(["goniometer", "phasewheel", "stereoscope"])
 
 
 def register(name: str):

@@ -164,6 +164,15 @@ def kernels() -> ctypes.CDLL:
             + [vp] * 3  # val, peak, zf (device)
             + [vp]  # cudaStream_t
         )
+        f = lib.surround_fused_launch
+        f.restype = ci
+        f.argtypes = (
+            [vp] * 10  # x, km_z, zl, sel_a, sel_b, wv, km at, km g, lp at, lp sy (device)
+            + [cf] * 3  # w1, 1 - w1, eps
+            + [ci] * 3  # B, C, T
+            + [vp] * 4  # kmz, zl, pk, pacc (device)
+            + [vp]  # cudaStream_t
+        )
         lib.meters_cuda_error_string.restype = ctypes.c_char_p
         lib.meters_cuda_error_string.argtypes = [ci]
         _lib = lib

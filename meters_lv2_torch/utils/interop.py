@@ -5,8 +5,8 @@ host-built operator matrices.  These helpers move both as numpy arrays, so
 a state taken from ``meters_lv2_tpu`` (``np.asarray`` of each leaf) can seed
 the port mid-stream and the two can be compared leaf by leaf.  A state is a
 dict of its fields; a field that is itself a state (``BBCMSState.mid``,
-``TruePeakMeterState.bal``, ``DR14State.km`` and ``.tp``) is a nested
-dict.  Nothing here imports jax.
+``TruePeakMeterState.bal``, ``DR14State.km`` and ``.tp``,
+``SurroundState.km``) is a nested dict.  Nothing here imports jax.
 """
 
 from __future__ import annotations

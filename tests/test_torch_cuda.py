@@ -21,6 +21,11 @@ with the same NaN and Inf positions (the kernel's smoother runs sample by
 sample, the plain version's as blocked Toeplitz products; as in
 chip_smoke.py).  spectr30stereo on the card against the CPU: readouts
 within 1e-3 dB.
+surround_fused: the block peak bit-exact, km_z within 4e-6 of each
+component's scale, zl and pacc within 1e-5 of each leaf's scale, with the
+same non-finite values (NaN/Inf alike for km_z and pk).  surround5 and
+surround8 on the card against the CPU: level and peak within 1e-4 dB,
+correlation within 1e-4.
 """
 
 import numpy as np
@@ -29,7 +34,8 @@ import torch
 
 import meters_lv2_torch
 from meters_lv2_torch.ops import (
-    ballistics_core, bitmeter_stats, design, lti, r128_fused, spectrum_fused, truepeak_fused)
+    ballistics_core, bitmeter_stats, design, lti, r128_fused, spectrum_fused, surround_fused,
+    truepeak_fused)
 
 pytestmark = pytest.mark.gpu
 
@@ -337,3 +343,83 @@ def test_spectrum_meter_nan_speed_on_card_matches_cpu(cuda):
     oc, _ = m.read(sc)
     for k in ("bands", "peaks"):
         assert (og[k].cpu() - oc[k]).abs().max().item() < 1e-3, k
+
+
+# surround_fused: pk bit-exact, km_z per component within 4e-6 of its scale,
+# zl and pacc within 1e-5 of each leaf's scale; km_z and pk NaN/Inf in the
+# same places, zl and pacc non-finite in the same places (as chip_smoke.py)
+SUR_Z_SCALE, SUR_TOL = 4e-6, 1e-5
+
+
+def _surround_args(C, B, T, seed, device, pairs=None, nonfinite=False):
+    m = meters_lv2_torch.create(f"surround{C}", 48000)
+    g = np.random.default_rng(seed)
+    x = (0.3 * g.standard_normal((B, C, T))).astype(np.float32)
+    if nonfinite:
+        x[0, C - 1, 300], x[1, 1, 700], x[2, 0, 130] = np.nan, np.inf, -np.inf
+    kz = torch.as_tensor((0.01 * g.random((B, C, 2))).astype(np.float32), device=device)
+    zl = torch.as_tensor((0.05 * g.standard_normal((B, C, 1))).astype(np.float32), device=device)
+    pr = None if pairs is None else torch.tensor(pairs, dtype=torch.float32, device=device)
+    wv, _ = m.cor._ema_weights(T, device)
+    return (torch.as_tensor(x, device=device), kz, zl, *m._sel(pr, device), m.km.sys, m.cor.lp,
+            m.cor.w1, wv)
+
+
+def _assert_surround_close(got, ref):
+    for n, a, b in zip(("km_z", "zl", "pk", "pacc"), got, ref):
+        a, b = a.cpu().double(), b.cpu().double()
+        f = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), f), n
+        if n in ("km_z", "pk"):
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), n
+            assert torch.equal(a[torch.isinf(b)], b[torch.isinf(b)]), n
+        if n == "pk":
+            assert torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)), n
+        elif n == "km_z":
+            scale = torch.where(f, b, 0.0).abs().amax(dim=(0, 1))
+            assert bool((torch.where(f, (a - b).abs(), 0.0) <= SUR_Z_SCALE * scale).all()), n
+        elif bool(f.any()):
+            assert (a - b).abs()[f].max() <= SUR_TOL * b.abs()[f].max(), n
+
+
+@pytest.mark.parametrize("C,B,T,pairs,nonfinite", [
+    (5, 5, 1280, [[0, 0], [1, 1], [0, 1], [2, 3]], False),
+    (5, 256, 48000, None, False),
+    (8, 256, 48000, None, False),
+    (5, 5, 1280, None, True),
+])
+def test_surround_kernel_matches_plain(cuda, C, B, T, pairs, nonfinite):
+    args = _surround_args(C, B, T, C + B, cuda, pairs, nonfinite)
+    n0 = surround_fused.launch_count
+    got = surround_fused.fused_core(*args)
+    ref = surround_fused.fused_core_reference(*args)
+    torch.cuda.synchronize()
+    assert surround_fused.launch_count == n0 + 1
+    _assert_surround_close(got, ref)
+
+
+@pytest.mark.parametrize("name", ["surround5", "surround8"])
+def test_surround_meter_on_card_matches_cpu(cuda, name):
+    """1000-sample blocks (kernel bulk and a plain tail) with the pairs
+    re-routed on the card mid-stream, then 128-aligned blocks."""
+    m = meters_lv2_torch.create(name, 48000)
+    C = m.nchan
+    rng = np.random.default_rng(C)
+    sg, sc = m.init((3,)), m.init((3,), device="cpu")
+    assert sg.zl.is_cuda and sg.km.z.is_cuda
+    pairs = [[0, 0], [1, 1], [0, 1], [2, 3]]
+    n0 = surround_fused.launch_count
+    for i in range(24):
+        T = 1000 if i < 12 else 1024
+        x = (0.2 * rng.standard_normal((3, C, T))).astype(np.float32)
+        p = pairs if i >= 6 else None
+        sg = m.update(sg, torch.as_tensor(x, device=cuda),
+                      None if p is None else torch.tensor(p, dtype=torch.float32, device=cuda))
+        sc = m.update(sc, torch.from_numpy(x), p)
+    assert surround_fused.launch_count == n0 + 24
+    og, _ = m.read(sg)
+    oc, _ = m.read(sc)
+    for k in ("level", "peak"):
+        d = (20 * torch.log10(og[k].cpu().double() / oc[k].double())).abs().max().item()
+        assert d < 1e-4, (k, d)
+    assert (og["correlation"].cpu() - oc["correlation"]).abs().max().item() < 1e-4

@@ -29,7 +29,8 @@ def test_import_pulls_in_no_jax():
         "import meters_lv2_torch.models.sigdist, meters_lv2_torch.models.bitmeter\n"
         "import meters_lv2_torch.models.dr14, meters_lv2_torch.utils.interop\n"
         "import meters_lv2_torch.models.spectrum, meters_lv2_torch.ops.spectrum_fused\n"
-        "for name in ('dr14stereo', 'SigDistHist', 'bitmeter', 'spectr30stereo'):\n"
+        "import meters_lv2_torch.models.surround, meters_lv2_torch.ops.surround_fused\n"
+        "for name in ('dr14stereo', 'SigDistHist', 'bitmeter', 'spectr30stereo', 'surround5'):\n"
         "    m.create(name, 48000).init((2,), device='cpu')\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
         "assert not bad, bad\n"
@@ -49,18 +50,20 @@ def test_registry_names_every_jax_meter():
     from meters_lv2_tpu.models import available as jax_available
 
     assert set(meters_lv2_torch.available()) == (
-        {"EBUr128"} | PORTED_BALLISTICS | PORTED_STATS | PORTED_SPECTRUM)
+        {"EBUr128"} | PORTED_BALLISTICS | PORTED_STATS | PORTED_SPECTRUM | PORTED_SURROUND)
     assert not set(meters_lv2_torch.available()) & torch_base.NOT_YET_PORTED
     assert set(jax_available()) == (
         set(meters_lv2_torch.available()) | torch_base.NOT_YET_PORTED
     )
-    for name in ("goniometer", "stereoscope", "phasewheel", "surround5"):
+    assert torch_base.NOT_YET_PORTED == {"goniometer", "phasewheel", "stereoscope"}
+    for name in ("goniometer", "stereoscope", "phasewheel"):
         with pytest.raises(NotImplementedError, match=name):
             meters_lv2_torch.create(name, 48000)
     with pytest.raises(KeyError):
         meters_lv2_torch.create("no-such-meter", 48000)
 
 
+PORTED_SURROUND = {f"surround{n}" for n in range(3, 9)}
 PORTED_SPECTRUM = {"spectr30mono", "spectr30stereo"}
 PORTED_STATS = {"dr14mono", "dr14stereo", "TPnRMSmono", "TPnRMSstereo", "SigDistHist", "bitmeter"}
 PORTED_BALLISTICS = {
@@ -88,6 +91,26 @@ def test_create_ballistics_meter(name):
     out, _ = m.read(st)
     for v in (out.values() if isinstance(out, dict) else [out]):
         assert v.shape == (2,) and v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_SURROUND))
+def test_create_surround_meter(name):
+    """surround3..8 are available under the JAX package's class names; one
+    update (a 128-sample bulk and a 72-sample tail) and read on CPU tensors."""
+    from meters_lv2_tpu.models import create as jax_create
+
+    m = meters_lv2_torch.create(name, 48000)
+    assert name in meters_lv2_torch.available()
+    assert type(m).__name__ == type(jax_create(name, 48000)).__name__
+    C = int(name[-1])
+    st = m.init((2,), device="cpu")
+    x = torch.from_numpy(
+        (0.1 * np.random.default_rng(C).standard_normal((2, C, 200))).astype(np.float32))
+    out, _ = m.read(m.update(st, x))
+    assert out["level"].shape == out["peak"].shape == (2, C)
+    assert out["correlation"].shape == (2, 4 if C > 3 else 3)
+    for v in out.values():
+        assert v.dtype == torch.float32 and bool(torch.isfinite(v).all())
 
 
 def test_ref_level_gain_matches_jax():
