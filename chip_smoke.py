@@ -10,8 +10,11 @@ Phases, each printed on its own line; any failure exits non-zero:
   1. device   the card, its power limit, fp32 matmul precision settings;
   2. build    nvcc builds every kernel from meters_lv2_torch/csrc;
   3. kernels  each kernel (r128_fused, ballistics, truepeak_fused,
-              bitmeter_stats, spectrum_fused, surround_fused) against its
-              plain PyTorch version on the same card tensors;
+              bitmeter_stats, spectrum_fused, surround_fused, stft_fused)
+              against its plain PyTorch version on the same card tensors
+              (stft_fused in all three modes at [256, 2, 56192] and at
+              W=256 hop 1764, raw mode also against torch.fft.rfft, and
+              with a NaN and a +Inf sample);
   4. main     at the bench operating point (B=256 streams of 48 kHz
               stereo, 12 flat 1 s blocks): EbuR128Meter, then dBTPstereo,
               BBCstereo, DINstereo, BBCM6, VUstereo, K20stereo and COR,
@@ -31,19 +34,27 @@ Phases, each printed on its own line; any failure exits non-zero:
               device argument, over the 12 blocks with the surround beds
               of tests/signals.py derived on the card, and in 1000-sample
               blocks with runtime pairs set mid-stream, streams 0-3 held
-              against CPU runs;
+              against CPU runs; then phasewheel, stereoscope and
+              goniometer (oversample 4), created and initialised with no
+              device argument, over the 12 blocks, stft_fused launched once
+              per phase wheel and stereoscope update, streams 0-3 of every
+              update held against CPU runs;
   5. golden   committed C-reference fixtures streamed on the card: two
               R128 ones, every fixture of the ballistics families, the 14
               statistics fixtures (DR-14, TP+RMS, sigdist, bit meter) and
-              the five spectrum fixtures (strict and in-band worst) and
-              the four surround fixtures;
+              the five spectrum fixtures (strict and in-band worst), the
+              four surround fixtures and the 14 analyzer fixtures (STFT,
+              phase wheel, stereoscope, goniometer);
   6. times    each kernel vs its plain version, the ballistics kernel alone
               at 4,224 to 33,792 rows, and main-path x-realtime (R128 over
               120 blocks, down from 240 to keep the whole run well inside
               its time limit; dBTP, BBC, BBC M-6, the statistics meters and
               spectr30stereo, surround5 and surround8 over 60; for the
               surround meters also the host's enqueue time and the device
-              time of an update under torch.profiler).
+              time of an update under torch.profiler); stft_fused also
+              against torch.fft.rfft of the windowed frames, and the three
+              analyzers' x-realtime over 60 blocks with their enqueue and
+              device time per update.
 
 The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
 sample on the CPU) go to worker processes at the start and are collected in
@@ -55,6 +66,7 @@ exits non-zero and prints no result.  It imports no JAX.
 
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import statistics
@@ -369,6 +381,15 @@ STATS = [
     ("SigDistHist", {"reference_oor_count": True}, "ch0"),
     ("bitmeter", {}, "ch0"),
 ]
+
+
+def state_tensors(state):
+    """Every tensor of a meter state: a dataclass or a dict of tensors and
+    nested states."""
+    vals = (list(state.values()) if isinstance(state, dict)
+            else [getattr(state, f.name) for f in dataclasses.fields(state)])
+    return [t for v in vals
+            for t in (state_tensors(v) if dataclasses.is_dataclass(v) else [v])]
 
 
 def stats_input(x, layout):
@@ -935,6 +956,12 @@ def surround_golden(dev):
     print(f"phase golden: ok: surround fixtures, whole: {'; '.join(gw)}")
 
 
+# the __global__ functions of meters_lv2_torch/csrc, as the profiler names them
+PORT_KERNELS = ("r128_fused_kernel", "ballistics_kernel", "truepeak_fused_kernel",
+                "bitmeter_stats_kernel", "spectrum_fused_kernel", "surround_fused_kernel",
+                "stft_fused_kernel")
+
+
 def device_us_per_update(m, st, xs, n=10):
     """torch.profiler over n updates of meter m: (device µs per update, of
     it the hand-written kernels' µs).  Device-side events only: an aten
@@ -951,7 +978,7 @@ def device_us_per_update(m, st, xs, n=10):
     dev_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     total = sum(t for _, t in dev_us)
-    kern = sum(t for k, t in dev_us if "_kernel<" in k and "native" not in k)
+    kern = sum(t for k, t in dev_us if any(name in k for name in PORT_KERNELS))
     return total / n, kern / n
 
 
@@ -1006,6 +1033,267 @@ def surround_times(dev, blocks3, gpu):
     return ms
 
 
+ANA_W, ANA_HOP = 8192, 1920  # the analyzers' native window and hop at 48 kHz
+ANA_F = FS // ANA_HOP  # frames per 1 s update (25)
+ANA_THR = 1e-6  # the phase wheel's -60 dB power threshold
+N_ANA = 60  # blocks of the analyzers' x-realtime
+
+
+def stft_bound(B, W, F, hop):
+    """(bytes, fp32 operations) of the stft_fused function in the phase
+    wheel's mode: the (F - 1) hop + W samples of ext that the frames cover
+    read once (frame f starts at hop (f + 1), so the first hop of ext is
+    never read), the window and twiddles once, dphi and level written once;
+    per channel-frame the window multiply (W) and a real FFT (2.5 W log2 W,
+    the usual count), per bin and channel the power (3), and per output bin the analysis (2 atan2 of ~20 operations, 2
+    compares, a subtraction, a max and 2 selects: 46)."""
+    D = W // 2
+    nbytes = 4 * (B * 2 * ((F - 1) * hop + W) + W + 2 * D + 2 * B * F * D)
+    flops = B * F * (2 * (W + 2.5 * W * math.log2(W) + 3 * D) + 46 * D)
+    return nbytes, flops
+
+
+def stft_kernel_cases(dev):
+    """stft_fused against its plain version: all three modes at the main-path
+    shape [256, 2, 56192] (W=8192, hop 1920, F=25), and at W=256 hop 1764
+    (the 44.1 kHz golden geometry), raw mode also against torch.fft.rfft of
+    the windowed frames, and a NaN in one stream's left channel with +Inf in
+    another stream's right channel.  Returns (max abs re/im error of the
+    raw mode at the main-path shape, breaches)."""
+    import torch
+
+    from meters_lv2_torch.ops import fft, stft_fused
+    from test_torch_cuda import stft_close, stft_inputs
+
+    failures, main_err = [], 0.0
+    for tag, W, hop, B, F, nonfinite in [
+        (f"main-path shape B={B_MAIN} W={ANA_W} hop {ANA_HOP} F={ANA_F}", ANA_W, ANA_HOP,
+         B_MAIN, ANA_F, False),
+        ("W=256 hop 1764 B=4 F=5", 256, 1764, 4, 5, False),
+        ("NaN (stream 1 left) and +Inf (stream 2 right) W=8192 B=3 F=3", ANA_W, ANA_HOP, 3, 3,
+         True),
+    ]:
+        ext, win, skip = stft_inputs(B, W, hop, F, W + B, dev, nonfinite)
+        raw = stft_fused.plain_frames(ext, win, hop, "raw", 0.0)
+        parts = []
+        for mode in ("raw", "phasewheel", "stereoscope"):
+            thr = ANA_THR if mode == "phasewheel" else 1e-20
+            got = stft_fused.analyzer_frames(ext, win, hop, mode, thr)
+            ref = raw if mode == "raw" else stft_fused.plain_frames(ext, win, hop, mode, thr)
+            torch.cuda.synchronize()
+            err, errs = stft_close(got, ref, raw, mode, thr, skip)
+            failures += [f"stft_fused {tag} {mode}: {e}" for e in errs]
+            parts.append(f"{mode} err {err:.3g}")
+            if mode == "raw":
+                # the library transform itself, with no epilogue in between
+                X = torch.fft.rfft(fft.frames_of(ext, W, hop) * win, dim=-1)[..., : W // 2]
+                lib = (X.real.contiguous(), X.imag.contiguous())
+                lerr, errs = stft_close(got, lib, lib, "raw", thr, skip)
+                failures += [f"stft_fused {tag} raw vs torch.fft.rfft: {e}" for e in errs]
+                parts.append(f"raw vs torch.fft.rfft err {lerr:.3g}")
+                if B == B_MAIN:
+                    main_err = err
+            del got, ref
+        print(f"  stft_fused {tag}: {'; '.join(parts)}: "
+              f"{'ok' if not any(tag in f for f in failures) else 'FAIL'}")
+        del ext, raw
+    return main_err, failures
+
+
+def analyzer_diff(name, out, out_c, raw_c=None):
+    """Card streams 0-3 against the CPU run: the phase wheel's per-frame
+    (dphi, level) as tests/test_torch_cuda.py::stft_close holds stft_fused
+    (``raw_c``: the CPU run's raw transform of those frames, for the bars),
+    its peak within 2e-4 relative and its correlation within 1e-5; the
+    stereoscope's smoothed level within 2e-4 relative plus 1e-8 of its
+    peak and lr within 1e-4 on bins above 1e-6 of it; the goniometer's x
+    and y within 1e-5 of their peak and its gain within 1e-5 relative.
+    Returns ({readout: worst error}, breaches)."""
+    import torch
+    from test_torch_cuda import stft_close
+
+    def mx(t):
+        return t.max().item() if t.numel() else 0.0
+
+    w, errs = {}, []
+    if name == "goniometer":
+        for k in ("x", "y"):
+            a, b = out[k][:4].cpu().double(), out_c[k].double()
+            w[k] = mx((a - b).abs()) / b.abs().max().item()
+        w["gain"] = mx((out["gain"][:4].cpu() - out_c["gain"]).abs() / out_c["gain"].abs())
+        errs += [f"{k} {v:.3g} relative" for k, v in w.items() if v > 1e-5]
+    elif name == "phasewheel":
+        got = (out["phase"][:4].cpu(), out["level"][:4].cpu())
+        w["frames"], e = stft_close(got, (out_c["phase"], out_c["level"]), raw_c, "phasewheel",
+                                    ANA_THR)
+        errs += e
+        w["peak"] = mx((out["peak"][:4].cpu() - out_c["peak"]).abs() / out_c["peak"])
+        w["correlation"] = mx((out["correlation"][:4].cpu() - out_c["correlation"]).abs())
+        errs += [f"{k} {w[k]:.3g}" for k, tol in (("peak", 2e-4), ("correlation", 1e-5))
+                 if w[k] > tol]
+    else:
+        lv, lc = out["level"][:4].cpu().double(), out_c["level"].double()
+        pk = torch.where(torch.isfinite(lc), lc, 0.0).abs().amax(-1, keepdim=True)
+        if bool(((lv - lc).abs() > 2e-4 * lc.abs() + 1e-8 * pk).any()):
+            errs.append("level off the power bar")
+        w["level"] = mx((lv - lc).abs() / lc.abs().clamp_min(1e-30))
+        big = lc > 1e-6 * pk
+        w["lr"] = mx((out["lr"][:4].cpu() - out_c["lr"]).abs()[big])
+        if w["lr"] > 1e-4:
+            errs.append(f"lr {w['lr']:.3g}")
+    return w, errs
+
+
+def analyzers_main(dev, blocks3, reset_counts, launches_of):
+    """phasewheel, stereoscope and goniometer, created and initialised with
+    no device argument, over the 12 main-path blocks at B=256: stft_fused
+    launched once per phase wheel and stereoscope update and no other kernel,
+    every readout finite of its shape, streams 0-3 of every update held
+    against the same meter on CPU tensors.  Returns the stft_fused launches."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import stft_fused
+
+    D = ANA_W // 2
+    shapes = {
+        "phasewheel": {"phase": (B_MAIN, ANA_F, D), "level": (B_MAIN, ANA_F, D),
+                       "peak": (B_MAIN,), "correlation": (B_MAIN,)},
+        "stereoscope": {"lr": (B_MAIN, D), "level": (B_MAIN, D)},
+        "goniometer": {"x": (B_MAIN, 4 * FS), "y": (B_MAIN, 4 * FS), "gain": (B_MAIN,)},
+    }
+    launches = 0
+    for name in ("phasewheel", "stereoscope", "goniometer"):
+        m = meters_lv2_torch.create(name, FS)
+        st = m.init((B_MAIN,))
+        if not all(t.is_cuda for t in state_tensors(st)):
+            fail(f"main path {name}: init() without a device did not put the state on the card")
+        st_c = m.init((4,), device="cpu")
+        xs = [torch.as_tensor(b, device=dev) for b in blocks3]
+        worst = {}
+        n = others = 0
+        for i, (xb, xc) in enumerate(zip(xs, blocks3)):
+            reset_counts()
+            out, st = m.process(st, xb)
+            torch.cuda.synchronize()
+            n += stft_fused.launch_count
+            others += sum(launches_of()) - stft_fused.launch_count
+            for k, shape in shapes[name].items():
+                v = out[k]
+                if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
+                    fail(f"main path {name} readout {k} not finite of shape {shape}")
+            x4 = torch.as_tensor(xc[:4])
+            raw_c = None
+            if name == "phasewheel":
+                raw_c = stft_fused.plain_frames(torch.cat([st_c.stft.tail, x4], -1),
+                                                m.stft.win("cpu"), ANA_HOP, "raw", 0.0)
+            out_c, st_c = m.process(st_c, x4)
+            diffs, errs = analyzer_diff(name, out, out_c, raw_c)
+            if errs:
+                fail(f"main path {name} block {i}: card vs CPU: {'; '.join(errs)}")
+            for k, v in diffs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+        want = 0 if name == "goniometer" else len(xs)
+        if n != want or others:
+            fail(f"main path {name}: stft_fused launches {n} (expected {want}), other kernels "
+                 f"{others}")
+        launches += n
+        first = ", ".join(f"{k}[0] {out[k].reshape(B_MAIN, -1)[0, -1].item():.6g}"
+                          for k in shapes[name])
+        print(f"phase main: ok: {name} {len(xs)} x 1 s blocks at B={B_MAIN}, state on the card, "
+              f"stft_fused launches {n}; {first}; streams 0-3 of every update vs CPU within "
+              f"the bars, worst: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+        del xs, out, st
+    return launches
+
+
+def analyzers_golden(dev):
+    """The 14 analyzer fixtures streamed whole on ``dev``."""
+    import test_torch_golden_analyzers as gana
+
+    gw = []
+    for name in gana.FIXTURES:
+        try:
+            gw.append(gana.run_fixture(name, device=dev))
+        except AssertionError as e:
+            fail(f"golden {name}: {e}")
+    print(f"phase golden: ok: analyzer fixtures (STFT on torch.fft.rfft, the phase wheel and "
+          f"stereoscope through stft_fused at W=256), whole: {'; '.join(gw)}")
+
+
+def analyzers_times(dev, blocks3, gpu):
+    """stft_fused against its plain version at the main-path shape in the
+    phase wheel's mode (plain, kernel, kernel, plain, one call at a time),
+    the stereoscope and raw modes once each, the library call
+    torch.fft.rfft on the windowed frames (the transform alone: no
+    framing, window or epilogue), and each analyzer's x-realtime over
+    N_ANA blocks at B=256, with its host enqueue time and device time per
+    update (torch.profiler).  Returns (kernel ms, plain
+    ms, library ms)."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import fft, stft_fused
+    from test_torch_cuda import stft_inputs
+
+    ext, win, _ = stft_inputs(B_MAIN, ANA_W, ANA_HOP, ANA_F, 17, dev)
+    ms_k, ms_p = [], []
+    for w in "pkkp":
+        if w == "k":
+            ms_k.append(cuda_ms(lambda: stft_fused.analyzer_frames(
+                ext, win, ANA_HOP, "phasewheel", ANA_THR), 10))
+        else:
+            ms_p.append(cuda_ms(lambda: stft_fused.plain_frames(
+                ext, win, ANA_HOP, "phasewheel", ANA_THR), 5))
+    other = {mode: cuda_ms(lambda: stft_fused.analyzer_frames(ext, win, ANA_HOP, mode, 1e-20), 10)
+             for mode in ("stereoscope", "raw")}
+    frames = (fft.frames_of(ext, ANA_W, ANA_HOP) * win).contiguous()
+    ms_lib = cuda_ms(lambda: torch.fft.rfft(frames, dim=-1), 10)
+    del frames
+    ms = (statistics.mean(ms_k), statistics.mean(ms_p), ms_lib)
+    print(f"phase times: stft_fused kernel {ms[0]:.4f} ms (phasewheel mode; medians {ms_k}), "
+          f"stereoscope mode {other['stereoscope']:.4f} ms, raw mode {other['raw']:.4f} ms; plain "
+          f"version {ms[1]:.4f} ms (medians {ms_p}); torch.fft.rfft of the windowed frames alone "
+          f"{ms_lib:.4f} ms, at B={B_MAIN} W={ANA_W} hop {ANA_HOP} F={ANA_F} [{gpu}]")
+    del ext
+    for name in ("phasewheel", "stereoscope", "goniometer"):
+        m = meters_lv2_torch.create(name, FS)
+        xs = [torch.as_tensor(b, device=dev) for b in blocks3]
+        runs, enqueue = [], []
+        for _ in range(2):
+            _, st = m.process(m.init((B_MAIN,)), xs[0])  # warm
+            st = m.init((B_MAIN,))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(N_ANA):
+                out, st = m.process(st, xs[i % len(xs)])
+            enqueue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            [v.cpu() for v in out.values()]
+            runs.append(time.perf_counter() - t0)
+        line = (f"phase times: {name} {B_MAIN * N_ANA / min(runs):.1f} x-realtime (best of "
+                f"{len(runs)}: {[round(r, 4) for r in runs]} s for {N_ANA} x 1 s blocks at "
+                f"B={B_MAIN}, {min(runs) / N_ANA * 1e3:.3f} ms per update)")
+        dev_us, kern_us = device_us_per_update(ProcessAsUpdate(m), st, xs)
+        line += (f"; host enqueue {[round(e / N_ANA * 1e3, 3) for e in enqueue]} ms per "
+                 f"update; torch.profiler: device time {dev_us:.1f} us per update, "
+                 f"hand-written kernels {kern_us:.1f} us ({100 * kern_us / dev_us:.1f} %)")
+        print(f"{line} [{gpu}]")
+        del xs
+    return ms
+
+
+class ProcessAsUpdate:
+    """An analyzer seen through the update(state, x) -> state protocol of
+    device_us_per_update."""
+
+    def __init__(self, m):
+        self.m = m
+
+    def update(self, st, x):
+        return self.m.process(st, x)[1]
+
+
 POOL = None  # worker processes of the CPU runs
 
 
@@ -1030,7 +1318,7 @@ def main():
         import meters_lv2_torch
         from meters_lv2_torch.ops import (
             ballistics_core, bitmeter_stats, design, lti, r128_fused, spectrum_fused,
-            surround_fused, truepeak_fused)
+            stft_fused, surround_fused, truepeak_fused)
         from meters_lv2_torch.runtime import build
         from meters_lv2_torch.utils.interop import state_to_numpy
     except ImportError as e:
@@ -1194,6 +1482,8 @@ def main():
     failures += errs
     sur_err, errs = surround_kernel_cases(dev)
     failures += errs
+    stft_err, errs = stft_kernel_cases(dev)
+    failures += errs
     if failures:
         fail("kernel vs plain: " + " | ".join(failures))
     print("phase kernels: ok")
@@ -1244,6 +1534,13 @@ def main():
         bitmeter_stats.launch_count = 0
         spectrum_fused.launch_count = 0
         surround_fused.launch_count = 0
+        stft_fused.launch_count = 0
+
+    def all_counts():
+        return (r128_fused.launch_count, ballistics_core.launch_count,
+                truepeak_fused.launch_count, bitmeter_stats.launch_count,
+                spectrum_fused.launch_count, surround_fused.launch_count,
+                stft_fused.launch_count)
 
     def counts():
         return ballistics_core.launch_count, truepeak_fused.launch_count
@@ -1322,10 +1619,6 @@ def main():
 
     # the statistics meters, created and initialised with no device
     # argument: their state must land on the card
-    def tensors_of(state):
-        return [t for f in dataclasses.fields(state) for v in (getattr(state, f.name),)
-                for t in (tensors_of(v) if dataclasses.is_dataclass(v) else [v])]
-
     def first4(d):
         return {k: (first4(v) if isinstance(v, dict) else v[:4]) for k, v in d.items()}
 
@@ -1333,7 +1626,7 @@ def main():
     for name, kw, layout in STATS:
         m = meters_lv2_torch.create(name, FS, **kw)
         st = m.init((B_MAIN,))
-        if not all(t.is_cuda for t in tensors_of(st)):
+        if not all(t.is_cuda for t in state_tensors(st)):
             fail(f"main path {name}: init() without a device did not put the state on CUDA")
         reset_counts()
         for i in range(N_STATS):
@@ -1364,7 +1657,7 @@ def main():
         first = ", ".join(f"{k}[0] {v.reshape(-1)[0].item():.6g}" for k, v in out.items()
                           if v[0].numel() == 1 or v.ndim == 2 and v.shape[1] <= 2)
         print(f"phase main: ok: {tag} {N_STATS} x 1 s blocks at B={B_MAIN}, state on "
-              f"{tensors_of(st)[0].device}, (ballistics, "
+              f"{state_tensors(st)[0].device}, (ballistics, "
               f"truepeak, bitmeter, r128) launches {got}; {first}; streams 0-3 after "
               f"{len(blocks)} blocks vs CPU: exact where exact, worst readout {worst:.3g} dB")
 
@@ -1392,6 +1685,8 @@ def main():
     marks.append(("main before surround", time.perf_counter()))
     sur_launches = surround_main(dev, blocks3, reset_counts)
     marks.append(("main surround", time.perf_counter()))
+    stft_launches = analyzers_main(dev, blocks3, reset_counts, all_counts)
+    marks.append(("main analyzers", time.perf_counter()))
 
     # -- 5. golden fixtures -------------------------------------------------
     gw = []
@@ -1436,6 +1731,8 @@ def main():
     marks.append(("golden before surround", time.perf_counter()))
     surround_golden(dev)
     marks.append(("golden surround", time.perf_counter()))
+    analyzers_golden(dev)
+    marks.append(("golden analyzers", time.perf_counter()))
 
     # -- 6. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
@@ -1560,6 +1857,8 @@ def main():
     sur_ms = surround_times(dev, blocks3, gpu)
     times["surround_fused"] = sur_ms[8]
     marks.append(("times surround", time.perf_counter()))
+    times["stft_fused"] = analyzers_times(dev, blocks3, gpu)
+    marks.append(("times analyzers", time.perf_counter()))
     print("phase times: seconds per phase: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
@@ -1595,6 +1894,9 @@ def main():
             4 * B_MAIN * C * FS + 4 * B_MAIN * C * (2 * 3 + 1) + 4 * B_MAIN * 4 * 3,
             B_MAIN * FS * (SUR_OPS_CHAN * C + 4 * sur_ops_pair(C)))
     bounds["surround_fused"] = bounds["surround_fused C=8"]
+    # the frames' samples of ext in, dphi and level out, at the phase wheel's
+    # main-path shape
+    bounds["stft_fused"] = bound(*stft_bound(B_MAIN, ANA_W, ANA_F, ANA_HOP))
     for name, (b, by) in bounds.items():
         print(f"phase times: {name} bound {b:.4f} ms ({by}) [{gpu}]")
     # the blocked form the kernel computes costs more than the function:
@@ -1679,6 +1981,20 @@ def main():
         "bound_ms": bounds["surround_fused"][0],
         "bound_by": bounds["surround_fused"][1],
         "library_ms": None,
+    }, {
+        "name": "stft_fused",
+        "route": "cuda",
+        "source": "meters_lv2_torch/csrc/stft_fused.cu",
+        "replaces": "meters_lv2_tpu/ops/pallas_stft.py:216",
+        "launches": stft_launches,
+        "max_abs_err": stft_err,  # raw re/im at the main-path shape, vs plain version
+        "ms": times["stft_fused"][0],  # phasewheel mode, the main path's
+        "plain_ms": times["stft_fused"][1],
+        "bound_ms": bounds["stft_fused"][0],
+        "bound_by": bounds["stft_fused"][1],
+        # torch.fft.rfft of the windowed frames: the transform only, without
+        # framing, window or the per-bin analysis
+        "library_ms": times["stft_fused"][2],
     }]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,9 @@ import torch
 _REGISTRY: dict[str, Callable[..., Any]] = {}
 
 # Meters of the JAX package (meters_lv2_tpu.models) that the port does not
-# have yet; create() names them in a NotImplementedError.
-NOT_YET_PORTED = frozenset(["goniometer", "phasewheel", "stereoscope"])
+# have yet; create() names them in a NotImplementedError.  Every meter is
+# ported, so it is empty.
+NOT_YET_PORTED: frozenset[str] = frozenset()
 
 
 def register(name: str):

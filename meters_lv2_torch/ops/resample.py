@@ -1,6 +1,7 @@
-"""4x polyphase oversampling for true-peak detection, as batched block
-matmuls.  Counterpart of the ``upsample4`` / ``upsample4_absmax`` part of
-``meters_lv2_tpu/ops/resample.py``.
+"""Polyphase oversampling as batched block matmuls: 4x for true-peak
+detection and 1/2/4/8x for the goniometer's trace.  Counterpart of the
+``upsample4`` / ``upsample4_absmax`` / ``upsample`` / ``composed_smooth_taps``
+part of ``meters_lv2_tpu/ops/resample.py``.
 
 The oversampled stream is
 
@@ -24,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .design import upsample4_kernel
+from .design import upsample4_kernel, upsample_poly_kernel
 from .lti import canonical_device
 
 _HL = 24  # zita half-length: 48 taps, 47 samples of history
@@ -155,3 +156,87 @@ def upsample4(
       reference (up[4t+ph] uses inputs ... x[t]); new_hist [..., 47].
     """
     return _upsample_blocked(x, hist, upsample4_taps())
+
+
+def upsample_taps(factor: int, hl: int) -> np.ndarray:
+    """[factor, 2*hl] float32 polyphase filters for integer-factor
+    oversampling (float64 design)."""
+    return upsample_poly_kernel(factor, hl).astype(np.float32)
+
+
+def upsample_init(batch_shape=(), hl: int = _HL, device="cuda") -> torch.Tensor:
+    """History buffer of 2*hl-1 zeros (equivalent to the zero prefeed)."""
+    return torch.zeros((*tuple(batch_shape), 2 * hl - 1), dtype=torch.float32, device=device)
+
+
+def upsample(x: torch.Tensor, hist: torch.Tensor, taps) -> tuple[torch.Tensor, torch.Tensor]:
+    """Integer-factor polyphase upsampling (generalises upsample4).
+
+    x [..., T], hist [..., 2*hl-1], taps [factor, 2*hl] (numpy or tensor)
+    -> (up [..., factor*T], new_hist).  The goniometer's optional 2x/4x/8x
+    oversampling (gui/goniometer.c:155-189, hlen=12).
+    """
+    if isinstance(taps, torch.Tensor):
+        taps = taps.detach().cpu().numpy()
+    return _upsample_blocked(x, hist, np.asarray(taps, np.float32))
+
+
+def composed_smooth_taps(
+    taps_np: np.ndarray, hpw: float, n_sm: int = 4
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fold a one-pole smoother into polyphase upsampling taps (float64 on
+    the host).
+
+    The goniometer's trace smoother ``lp += hpw*(d - lp)``
+    (gui/goniometer.c:400-409) runs on the oversampled stream, but its pole
+    (1-hpw) ~ 3e-4 .. 3e-3 is near-memoryless: to below an f32 ulp it is the
+    ``n_sm``-tap FIR sm[k] = hpw (1-hpw)^k (residual (1-hpw)^n_sm <= ~1e-10
+    of the signal).  Convolved into the upsampling taps, oversampling and
+    smoothing become one overlapping-block matmul.
+
+    Outputs t < n_sm-1 of a block need oversampled samples from before the
+    block; the caller evaluates them by the exact recurrence identity
+
+        trace_t = sum_{k<=t} sm[k] d_{t-k} + (1-hpw)^(t+1) s0
+
+    with s0 the carried smoother state; C/pow below give that row form over
+    the window [hist(K-1) | x_0 x_1].
+
+    Returns (taps_c [os, nh'+1], C [n_sm-1, K+1], pow [n_sm-1]), float32;
+    taps_c feeds ``_block_matrix`` with nh' = (os*K + n_sm - 2)//os history
+    samples (os > 1 callers zero-pad the K-1-sample history on the left;
+    the pad corrupts exactly the outputs C replaces).
+    """
+    os_, K = np.asarray(taps_np).shape
+    nh = K - 1
+    t64 = np.asarray(taps_np, np.float64)
+    sm = float(hpw) * (1.0 - float(hpw)) ** np.arange(n_sm, dtype=np.float64)
+    # oversampled-domain impulse response: H[ph + os*(nh - i)] = taps[ph, i]
+    H = np.zeros(os_ * K, np.float64)
+    for ph in range(os_):
+        for i in range(K):
+            H[ph + os_ * (nh - i)] = t64[ph, i]
+    Hc = np.convolve(H, sm)
+    nmax = len(Hc) - 1
+    nhp = nmax // os_
+    taps_c = np.zeros((os_, nhp + 1), np.float64)
+    for ph in range(os_):
+        for ip in range(nhp + 1):
+            n = ph + os_ * (nhp - ip)
+            if 0 <= n <= nmax:
+                taps_c[ph, ip] = Hc[n]
+    # exact first-output rows over [hist(nh) | x_0 x_1]
+    C = np.zeros((n_sm - 1, K + 1), np.float64)
+    for m in range(n_sm - 1):
+        for k in range(m + 1):
+            j, php = divmod(m - k, os_)  # d_{m-k}: input j, phase php
+            for i in range(K):
+                col = j + i
+                if 0 <= col <= K:
+                    C[m, col] += sm[k] * t64[php, i]
+    powv = (1.0 - float(hpw)) ** np.arange(1, n_sm, dtype=np.float64)
+    return (
+        taps_c.astype(np.float32),
+        C.astype(np.float32),
+        powv.astype(np.float32),
+    )

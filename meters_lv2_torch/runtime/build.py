@@ -173,6 +173,15 @@ def kernels() -> ctypes.CDLL:
             + [vp] * 4  # kmz, zl, pk, pacc (device)
             + [vp]  # cudaStream_t
         )
+        f = lib.stft_fused_launch
+        f.restype = ci
+        f.argtypes = (
+            [vp] * 3  # ext, win, tw (device)
+            + [ci] * 6  # B, L, W, hop, F, mode
+            + [cf]  # thr
+            + [vp] * 2  # out_a, out_b (device)
+            + [vp]  # cudaStream_t
+        )
         lib.meters_cuda_error_string.restype = ctypes.c_char_p
         lib.meters_cuda_error_string.argtypes = [ci]
         _lib = lib

@@ -26,7 +26,20 @@ component's scale, zl and pacc within 1e-5 of each leaf's scale, with the
 same non-finite values (NaN/Inf alike for km_z and pk).  surround5 and
 surround8 on the card against the CPU: level and peak within 1e-4 dB,
 correlation within 1e-4.
+stft_fused (``stft_close``): two float32 FFTs in another order, so re/im
+within 1e-6 of each frame's peak magnitude (raw), powers and levels within
+2e-4 relative plus 1e-8 of the frame's peak power, dphi (wrapped) within
+4 ulp of its magnitude plus 1e-6 sqrt(peak / P) on bins whose weaker
+channel's power P lies above 1e-6 of the peak (a phase error is the FFT's
+absolute error, measured at 2.4e-7 of the frame's peak magnitude, over
+the bin's magnitude), stereoscope positions within 1e-4 on bins above 1e-6 of the peak, an ok
+mask flipping only where a power lies within 1e-3 relative of the
+threshold, NaN in one channel marked alike; a stream with an Inf sample is
+compared on its other channel only (which bins turn Inf or NaN depends on
+the FFT).  The analyzers on the card against the CPU: the same bars.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -34,8 +47,8 @@ import torch
 
 import meters_lv2_torch
 from meters_lv2_torch.ops import (
-    ballistics_core, bitmeter_stats, design, lti, r128_fused, spectrum_fused, surround_fused,
-    truepeak_fused)
+    ballistics_core, bitmeter_stats, design, fft, lti, r128_fused, spectrum_fused, stft_fused,
+    surround_fused, truepeak_fused)
 
 pytestmark = pytest.mark.gpu
 
@@ -423,3 +436,159 @@ def test_surround_meter_on_card_matches_cpu(cuda, name):
         d = (20 * torch.log10(og[k].cpu().double() / oc[k].double())).abs().max().item()
         assert d < 1e-4, (k, d)
     assert (og["correlation"].cpu() - oc["correlation"]).abs().max().item() < 1e-4
+
+
+STFT_RAW_TOL = 1e-6  # of each frame's peak magnitude
+STFT_POW_RTOL, STFT_POW_ATOL = 2e-4, 1e-8  # relative, of the frame's peak power
+STFT_PH_FFT = 1e-6  # rad at the frame's peak magnitude, growing as 1/|X|
+STFT_POS_TOL = 1e-4
+STFT_FLIP_REL = 1e-3
+
+
+def phase_bar(ref, p, pk):
+    """The bar of a phase (difference) ``ref`` whose weakest bin power is
+    ``p`` in a frame of peak power ``pk``: 4 ulp of |ref| plus
+    STFT_PH_FFT sqrt(pk / p)."""
+    ulp = torch.abs(ref.float()).clamp_min(1e-30).double() * 2.0 ** -23
+    return 4 * ulp + STFT_PH_FFT * torch.sqrt(pk / p.clamp_min(1e-300))
+
+
+def stft_close(got, ref, raw, mode, thr, skip=()):
+    """One stft_fused call against its plain version on the same inputs.
+
+    ``raw`` is the plain version's raw (re, im) of the same frames: the bars
+    are set per frame from its powers.  Streams in ``skip`` (an Inf sample)
+    are compared on the channels whose raw bins are all finite, in raw mode
+    only.  Returns (max abs error over the finite outputs, breaches)."""
+    re, im = (v.double() for v in raw)  # [B, 2, F, D]
+    pw = re * re + im * im
+    fin = torch.isfinite(pw)
+    pk = torch.where(fin, pw, 0.0).amax(-1, keepdim=True)  # [B, 2, F, 1]
+    B = re.shape[0]
+    keep = torch.ones(B, dtype=torch.bool, device=re.device)
+    keep[list(skip)] = False
+    a, b = (v.double() for v in got)
+    ar, br = (v.double() for v in ref)
+    errs = []
+
+    def finite_err(x, y, mask):
+        d = (x - y).abs()[mask & torch.isfinite(y)]
+        return d.max().item() if d.numel() else 0.0
+
+    if mode == "raw":
+        chan_ok = fin.all(-1, keepdim=True) | keep[:, None, None, None]
+        both = torch.isfinite(a) & torch.isfinite(b)
+        bothr = torch.isfinite(ar) & torch.isfinite(br)
+        if not torch.equal((both == bothr) | ~chan_ok, torch.ones_like(both)):
+            errs.append("non-finite bins differ")
+        m = chan_ok & bothr
+        tol = STFT_RAW_TOL * torch.sqrt(pk)
+        worst = max(finite_err(a, ar, m), finite_err(b, br, m))
+        if bool(((a - ar).abs() > tol)[m].any() or ((b - br).abs() > tol)[m].any()):
+            errs.append(f"re/im err {worst:.3g} over {STFT_RAW_TOL} of the frame peak")
+        return worst, errs
+    pl, pr = pw[:, 0], pw[:, 1]
+    pkf = torch.maximum(pk[:, 0], pk[:, 1])  # [B, F, 1]
+    kb = keep[:, None, None]
+    near = ((pl - thr).abs() <= STFT_FLIP_REL * thr) | ((pr - thr).abs() <= STFT_FLIP_REL * thr)
+    ok, okr = (b > -99, br > -99) if mode == "phasewheel" else (b != 0, br != 0)
+    if bool(((ok != okr) & ~near & kb).any()):
+        errs.append(f"ok masks differ off the threshold ({int(((ok != okr) & kb).sum())} bins)")
+    both = ok & okr & kb
+    if not torch.equal(torch.isnan(b) & kb, torch.isnan(br) & kb):
+        errs.append("NaN levels differ")
+    lvl_bad = ((b - br).abs() > STFT_POW_RTOL * br.abs() + STFT_POW_ATOL * pkf) & both
+    if bool((lvl_bad & torch.isfinite(br)).any()):
+        errs.append("level off the power bar")
+    worst = finite_err(b, br, both)
+    if mode == "phasewheel":
+        if not (bool((a[~ok & kb] == 0).all()) and bool((b[~ok & kb] == -100).all())):
+            errs.append("below-threshold bins not marked (0, -100)")
+        d = torch.remainder(a - ar + math.pi, 2 * math.pi) - math.pi
+        pmin = torch.minimum(pl, pr)
+        sig = both & (pmin > 1e-6 * pkf)
+        if bool((d.abs() > phase_bar(ar, pmin, pkf))[sig].any()):
+            errs.append("dphi off the phase bar")
+        worst = max(worst, d.abs()[sig].max().item() if bool(sig.any()) else 0.0)
+    else:
+        if not torch.equal(torch.isnan(a) & kb, torch.isnan(ar) & kb):
+            errs.append("NaN positions differ")
+        big = both & torch.isfinite(br) & (br > 1e-6 * pkf)
+        if bool(((a - ar).abs() > STFT_POS_TOL)[big].any()):
+            errs.append("pos off its bar")
+        worst = max(worst, finite_err(a, ar, big))
+    return worst, errs
+
+
+def stft_inputs(B, W, hop, F, seed, dev, nonfinite=False):
+    """(ext [B, 2, W + F hop], win [W]) on ``dev``: 0.3 N(0, 1) plus a 997 Hz
+    sine; with ``nonfinite`` a NaN in stream 1's left channel and +Inf in
+    stream 2's right channel (B >= 3).  Returns (ext, win, streams with an
+    Inf sample)."""
+    rng = np.random.default_rng(seed)
+    L = W + hop * F
+    t = np.arange(L) / 48000
+    x = (0.3 * rng.standard_normal((B, 2, L)) + 0.5 * np.sin(2 * np.pi * 997 * t)).astype(np.float32)
+    if nonfinite:  # NaN in frame 0, Inf in the last frame (and its neighbours)
+        x[1, 0, hop + 5] = np.nan
+        x[2, 1, hop * F + 7] = np.inf
+    win = torch.as_tensor(fft.make_window("hann", W).astype(np.float32), device=dev)
+    return torch.as_tensor(x, device=dev), win, ((2,) if nonfinite else ())
+
+
+@pytest.mark.parametrize("mode", ["raw", "phasewheel", "stereoscope"])
+@pytest.mark.parametrize("W,hop,B,F,nonfinite", [
+    (8192, 1920, 8, 25, False),
+    (256, 1764, 4, 5, False),
+    (256, 1920, 3, 1, True),
+    (8192, 1920, 3, 3, True),
+])
+def test_stft_kernel_matches_plain(cuda, mode, W, hop, B, F, nonfinite):
+    ext, win, skip = stft_inputs(B, W, hop, F, W + B, cuda, nonfinite)
+    thr = 1e-6 if mode == "phasewheel" else 1e-20
+    n0 = stft_fused.launch_count
+    got = stft_fused.analyzer_frames(ext, win, hop, mode, thr)
+    ref = stft_fused.plain_frames(ext, win, hop, mode, thr)
+    raw = stft_fused.plain_frames(ext, win, hop, "raw", thr)
+    torch.cuda.synchronize()
+    assert stft_fused.launch_count == n0 + 1
+    _, errs = stft_close(got, ref, raw, mode, thr, skip)
+    assert not errs, errs
+
+
+@pytest.mark.parametrize("name,fs", [("phasewheel", 48000), ("stereoscope", 44100),
+                                     ("goniometer", 48000)])
+def test_analyzer_on_card_matches_cpu(cuda, name, fs):
+    """Three calls at B = 3 (two frames each; 2000-sample blocks for the
+    goniometer), state created on the card with no device argument."""
+    m = meters_lv2_torch.create(name, fs)
+    T = 2 * m.stft.hop if name != "goniometer" else 2000
+    rng = np.random.default_rng(5)
+    sg, sc = m.init((3,)), m.init((3,), device="cpu")
+    n0 = stft_fused.launch_count
+    for _ in range(3):
+        x = (0.2 * rng.standard_normal((3, 2, T))).astype(np.float32)
+        og, sg = m.process(sg, torch.as_tensor(x, device=cuda))
+        oc, sc = m.process(sc, torch.from_numpy(x))
+    assert stft_fused.launch_count == n0 + (0 if name == "goniometer" else 3)
+    if name == "goniometer":
+        for k in ("x", "y"):
+            a, b = og[k].cpu().double(), oc[k].double()
+            assert ((a - b).abs() <= 1e-5 * b.abs().max()).all(), k
+        torch.testing.assert_close(og["gain"].cpu(), oc["gain"], rtol=1e-5, atol=0)
+        return
+    lv, lc = og["level"].cpu().double(), oc["level"].double()
+    pk = lc.abs().amax(-1, keepdim=True)
+    assert bool(((lv - lc).abs() <= STFT_POW_RTOL * lc.abs() + STFT_POW_ATOL * pk).all())
+    if name == "phasewheel":
+        ok = (lv > -99) & (lc > -99)
+        d = torch.remainder(og["phase"].cpu().double() - oc["phase"].double() + math.pi,
+                            2 * math.pi) - math.pi
+        # the level is the stronger channel's power: 1e-3 rad holds where
+        # it lies above 1e-6 of the peak (the golden bar)
+        assert bool((d.abs()[ok & (lc > 1e-6 * pk)] <= 1e-3).all())
+        torch.testing.assert_close(og["peak"].cpu(), oc["peak"], rtol=2e-4, atol=0)
+        torch.testing.assert_close(og["correlation"].cpu(), oc["correlation"], rtol=0, atol=1e-5)
+    else:
+        big = lc > 1e-6 * pk
+        assert bool(((og["lr"].cpu() - oc["lr"]).abs()[big] <= STFT_POS_TOL).all())

@@ -30,7 +30,10 @@ def test_import_pulls_in_no_jax():
         "import meters_lv2_torch.models.dr14, meters_lv2_torch.utils.interop\n"
         "import meters_lv2_torch.models.spectrum, meters_lv2_torch.ops.spectrum_fused\n"
         "import meters_lv2_torch.models.surround, meters_lv2_torch.ops.surround_fused\n"
-        "for name in ('dr14stereo', 'SigDistHist', 'bitmeter', 'spectr30stereo', 'surround5'):\n"
+        "import meters_lv2_torch.models.phasewheel, meters_lv2_torch.ops.stft_fused\n"
+        "import meters_lv2_torch.models.goniometer, meters_lv2_torch.ops.fft\n"
+        "for name in ('dr14stereo', 'SigDistHist', 'bitmeter', 'spectr30stereo', 'surround5',\n"
+        "             'phasewheel', 'stereoscope', 'goniometer'):\n"
         "    m.create(name, 48000).init((2,), device='cpu')\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
         "assert not bad, bad\n"
@@ -45,24 +48,23 @@ def test_import_pulls_in_no_jax():
 
 
 def test_registry_names_every_jax_meter():
-    """Every meter of the JAX package is either available in the port or
-    refused by name with NotImplementedError."""
+    """Every meter of the JAX package is available in the port: none is
+    left in NOT_YET_PORTED."""
     from meters_lv2_tpu.models import available as jax_available
 
     assert set(meters_lv2_torch.available()) == (
-        {"EBUr128"} | PORTED_BALLISTICS | PORTED_STATS | PORTED_SPECTRUM | PORTED_SURROUND)
+        {"EBUr128"} | PORTED_BALLISTICS | PORTED_STATS | PORTED_SPECTRUM | PORTED_SURROUND
+        | PORTED_ANALYZERS)
     assert not set(meters_lv2_torch.available()) & torch_base.NOT_YET_PORTED
     assert set(jax_available()) == (
         set(meters_lv2_torch.available()) | torch_base.NOT_YET_PORTED
     )
-    assert torch_base.NOT_YET_PORTED == {"goniometer", "phasewheel", "stereoscope"}
-    for name in ("goniometer", "stereoscope", "phasewheel"):
-        with pytest.raises(NotImplementedError, match=name):
-            meters_lv2_torch.create(name, 48000)
+    assert torch_base.NOT_YET_PORTED == set()
     with pytest.raises(KeyError):
         meters_lv2_torch.create("no-such-meter", 48000)
 
 
+PORTED_ANALYZERS = {"goniometer", "phasewheel", "stereoscope"}
 PORTED_SURROUND = {f"surround{n}" for n in range(3, 9)}
 PORTED_SPECTRUM = {"spectr30mono", "spectr30stereo"}
 PORTED_STATS = {"dr14mono", "dr14stereo", "TPnRMSmono", "TPnRMSstereo", "SigDistHist", "bitmeter"}
@@ -111,6 +113,35 @@ def test_create_surround_meter(name):
     assert out["correlation"].shape == (2, 4 if C > 3 else 3)
     for v in out.values():
         assert v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_ANALYZERS))
+def test_create_analyzer(name):
+    """The display analyzers are available under the JAX package's class
+    names; init() with no device puts the state on the card (the default
+    argument is "cuda"); one process() call on CPU tensors."""
+    import dataclasses
+    import inspect
+
+    from meters_lv2_tpu.models import create as jax_create
+
+    m = meters_lv2_torch.create(name, 48000)
+    assert type(m).__name__ == type(jax_create(name, 48000)).__name__
+    assert inspect.signature(m.init).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        def tensors(st):
+            vals = (list(st.values()) if isinstance(st, dict)
+                    else [getattr(st, f.name) for f in dataclasses.fields(st)])
+            return [t for v in vals for t in (tensors(v) if dataclasses.is_dataclass(v) else [v])]
+
+        assert all(t.is_cuda for t in tensors(m.init((2,))))
+    st = m.init((2,), device="cpu")
+    T = 1920 if name != "goniometer" else 512
+    x = torch.from_numpy(
+        (0.1 * np.random.default_rng(3).standard_normal((2, 2, T))).astype(np.float32))
+    out, _ = m.process(st, x)
+    for v in out.values():
+        assert v.dtype == torch.float32 and v.shape[0] == 2 and bool(torch.isfinite(v).all())
 
 
 def test_ref_level_gain_matches_jax():
