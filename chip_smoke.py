@@ -14,7 +14,14 @@ Phases, each printed on its own line; any failure exits non-zero:
               against its plain PyTorch version on the same card tensors
               (stft_fused in all three modes at [256, 2, 56192] and at
               W=256 hop 1764, raw mode also against torch.fft.rfft, and
-              with a NaN and a +Inf sample);
+              with a NaN and a +Inf sample); then the three variants: the
+              ballistics envelope body against its plain version and the
+              serial kernel (N=512 T=48000 with and without track_peak,
+              and adversarial rows), r128_fused's seg mode at [256, 2,
+              48000] with random offsets at fragm 2400 and 2205 against
+              its plain version and the kernel's full-rate mode, and the
+              surround wide layout against the narrow kernel and the plain
+              version at C=5 and C=8, B=256, and with NaN/Inf samples;
   4. main     at the bench operating point (B=256 streams of 48 kHz
               stereo, 12 flat 1 s blocks): EbuR128Meter, then dBTPstereo,
               BBCstereo, DINstereo, BBCM6, VUstereo, K20stereo and COR,
@@ -38,13 +45,21 @@ Phases, each printed on its own line; any failure exits non-zero:
               goniometer (oversample 4), created and initialised with no
               device argument, over the 12 blocks, stft_fused launched once
               per phase wheel and stereoscope update, streams 0-3 of every
-              update held against CPU runs;
+              update held against CPU runs; then the variants: BBCstereo
+              and BBCM6 over the 12 blocks with METERS_TORCH_BALLISTICS_ENV=1
+              against the serial run, R128's fragment sums through
+              r128_fused's seg mode over the 12 blocks (carried state and
+              offsets) against the full-rate kernel + shifted_segments, and
+              surround5 and surround8 with METERS_TORCH_SURROUND_WIDE=1
+              against the narrow run, each variant's launches counted;
   5. golden   committed C-reference fixtures streamed on the card: two
               R128 ones, every fixture of the ballistics families, the 14
               statistics fixtures (DR-14, TP+RMS, sigdist, bit meter) and
               the five spectrum fixtures (strict and in-band worst), the
               four surround fixtures and the 14 analyzer fixtures (STFT,
-              phase wheel, stereoscope, goniometer);
+              phase wheel, stereoscope, goniometer); then the DIN, BBC and
+              BBC M-6 fixtures through the envelope body and the surround
+              fixtures through the wide layout;
   6. times    each kernel vs its plain version, the ballistics kernel alone
               at 4,224 to 33,792 rows, and main-path x-realtime (R128 over
               120 blocks, down from 240 to keep the whole run well inside
@@ -54,7 +69,9 @@ Phases, each printed on its own line; any failure exits non-zero:
               time of an update under torch.profiler); stft_fused also
               against torch.fft.rfft of the windowed frames, and the three
               analyzers' x-realtime over 60 blocks with their enqueue and
-              device time per update.
+              device time per update; each variant against its default
+              (the envelope also over the row sweep), and BBCstereo,
+              surround5 and surround8 x-realtime with each variant on.
 
 The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
 sample on the CPU) go to worker processes at the start and are collected in
@@ -64,6 +81,7 @@ summary of the kernels, the nvidia-smi name and power limit, and
 exits non-zero and prints no result.  It imports no JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -131,6 +149,15 @@ SPEC_TOL = 1e-5
 # fp32 operations per (sample, band) of the spectrum function: six biquads
 # of 5 MACs, square, smoother (a subtraction and an FMA) and max
 SPEC_OPS = 6 * 5 * 2 + 1 + 3 + 1
+# fp32 operations per channel-sample of the R128 function: the true-peak
+# FIR (4 phases of 48 taps: 192 MACs, 384), the K-weighting recursion of
+# the C reference (x' = p - b1 z1 - b2 z2: 4; y = a0 x' + a1 z1 + a2 z2 -
+# c3 z3 - c4 z4: 9; z3 += y, z4 += z3: 2), the power (square, gain, channel
+# sum: 3) and the peak (max of the 4 phases' |.|: 4).  The blocked form the
+# kernel computes does the 128-term Toeplitz row (256) and the state maps
+# (16) in place of the recursion: R128_BLOCKED_OPS
+R128_OPS = 384 + 15 + 3 + 4
+R128_BLOCKED_OPS = 384 + 256 + 16 + 3 + 4
 # surround_fused, kernel vs plain version: pk bit-exact (fmaxf skips NaN as
 # the plain version's where(isnan, 0, q) max does), km_z per component
 # within SUR_Z_SCALE of its scale (the state chain, as Z_SCALE), zl and
@@ -1283,6 +1310,461 @@ def analyzers_times(dev, blocks3, gpu):
     return ms
 
 
+# -- the variants: the ballistics envelope body, R128 seg mode and the
+# surround wide layout.  The switches are unset for every default path;
+# env_set turns one on for a phase.
+ENV_VAR, WIDE_VAR = "METERS_TORCH_BALLISTICS_ENV", "METERS_TORCH_SURROUND_WIDE"
+# envelope: bit-exact to its plain version (the same fp32 operations in its
+# order, none contracted); against the serial kernel z1, z2 and m within
+# ENV_RTOL relative plus ENV_ATOL (tests/test_ballistics_envelope.py), p
+# exact, the same NaN and Inf values (a NaN and a +Inf in one group give
+# the serial body's +Inf)
+ENV_RTOL, ENV_ATOL = 2e-6, 1e-7
+# seg mode: seg within SEG_RTOL relative plus SEG_ATOL of its plain version
+# (the full-rate plain version, then segment.shifted_segments) and of the
+# same kernel's full-rate p through shifted_segments (tests/
+# test_pallas_r128_fused.py:262); z, hist and tpmax bit-identical to the
+# full-rate mode.  The slot sums add 128-sample block sums in another order
+# than torch.sum over a fragment: a few ulp of the sum.
+SEG_RTOL, SEG_ATOL = 2e-6, 1e-9
+# the R128 meter's fragment at 48 kHz and its slots for a 1 s block
+FRAGM = FS // 20
+N_SLOTS = FS // FRAGM + 2
+
+
+@contextlib.contextmanager
+def env_set(name, value="1"):
+    """Set the environment variable ``name`` for the body of the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def compare_envelope(got, ref, serial, tag):
+    """One envelope call: bit-exact to its plain version ``ref``, within
+    ENV_RTOL / ENV_ATOL of the serial kernel (p exact, the same non-finite
+    values).  Prints the max abs error vs the serial kernel; returns the
+    breaches."""
+    import torch
+
+    names = ("z1", "z2", "m", "p")
+    errs = [f"{n} not bit-exact to the plain version"
+            for n, a, b in zip(names, got, ref) if not same_bits(a, b)]
+    err = 0.0
+    for k, (n, a, b) in enumerate(zip(names, got, serial)):
+        if not same_nonfinite(a, b):
+            errs.append(f"{n} non-finite values differ from the serial kernel's")
+        f = torch.isfinite(b)
+        d = (a - b).abs()[f]
+        if d.numel():
+            err = max(err, d.max().item())
+            bar = 0.0 if k == 3 else ENV_RTOL * b.abs()[f] + ENV_ATOL
+            if bool((d > bar).any()):
+                errs.append(f"{n} vs the serial kernel: err {d.max().item():.3g}")
+    print(f"  ballistics envelope {tag}: bit-exact to the plain version "
+          f"{not any('bit-exact' in e for e in errs)}, max abs err vs the serial kernel "
+          f"{err:.3g}: {'ok' if not errs else 'FAIL ' + '; '.join(errs)}")
+    return errs
+
+
+def envelope_kernel_cases(dev, w):
+    """The envelope kernel against its plain version and the serial kernel:
+    the main-path shape N=512 T=48000 with and without track_peak, and
+    adversarial rows (silence, a spike, NaN, +Inf first and second in its
+    group, a NaN and a +Inf in one group in both orders, a NaN carried max).
+    Returns (max abs error vs the plain version at the main-path shape (0.0:
+    bit-exact), the plain version's ms of one main-path call, breaches)."""
+    import torch
+
+    from meters_lv2_torch.ops import ballistics_core
+
+    rng = np.random.default_rng(9)
+    N, T = 2 * B_MAIN, FS
+    t = np.abs(0.3 * rng.standard_normal((N, T))).astype(np.float32)
+    st = [np.abs(0.3 * rng.standard_normal(N)).astype(np.float32) for _ in range(4)]
+    ta = np.abs(rng.standard_normal((8, 1024))).astype(np.float32)
+    ta[0, 32:512] = 0.0
+    ta[1, 77] = 50.0
+    ta[2, 10] = np.nan
+    ta[3, ::7] = np.nan
+    ta[4, 100], ta[5, 101] = np.inf, np.inf
+    ta[6, 40], ta[6, 41] = np.nan, np.inf
+    ta[7, 40], ta[7, 42] = np.inf, np.nan
+    sta = [np.abs(0.3 * rng.standard_normal(8)).astype(np.float32) for _ in range(4)]
+    sta[2][0] = np.nan
+    failures, main_err, plain_ms = [], 0.0, None
+    for tag, tt, s, tp in [
+        (f"main-path shape N={N} T={T} track_peak=False", t, st, False),
+        (f"main-path shape N={N} T={T} track_peak=True", t, st, True),
+        ("adversarial rows N=8 T=1024 track_peak=True", ta, sta, True),
+    ]:
+        args = [torch.as_tensor(a, device=dev) for a in [tt, *s]]
+        got = ballistics_core.ballistics(*args, **w, track_peak=tp, envelope=True)
+        serial = ballistics_core.ballistics(*args, **w, track_peak=tp)
+        ref, ms = timed_call(lambda: ballistics_core.ballistics_envelope_reference(
+            *args, **w, track_peak=tp))
+        errs = compare_envelope(got, ref, serial, tag)
+        failures += [f"ballistics envelope {tag}: {e}" for e in errs]
+        if tt is t:
+            main_err = max([main_err] + [finite_err(a, b) for a, b in zip(got, ref)])
+            if not tp:
+                plain_ms = ms
+        elif not all(bool(torch.isposinf(v[5:]).all()) for v in got[:3]):
+            failures.append("ballistics envelope: rows 5-7 (+Inf, NaN with +Inf) not +Inf")
+    return main_err, plain_ms, failures
+
+
+def seg_kernel_cases(dev):
+    """r128_fused in seg mode at [256, 2, 48000] with random offsets, at
+    48 kHz (fragm 2400) and 44.1 kHz (fragm 2205, the 44.1 kHz K-weighting),
+    and with NaN / +Inf samples at B=4 T=2560: against its plain version and
+    against the same kernel's full-rate mode.  Returns (max abs error of seg
+    vs the plain version at 48 kHz, the plain version's ms there, breaches)."""
+    import torch
+
+    from meters_lv2_torch.ops import design, lti, r128_fused, segment
+
+    rng = np.random.default_rng(12)
+    failures, main_err, plain_ms = [], 0.0, None
+    for tag, fs, B, T, inject in [
+        (f"main-path shape B={B_MAIN} C=2 T={FS} fragm 2400", 48000, B_MAIN, FS, False),
+        (f"B={B_MAIN} C=2 T={FS} fragm 2205 (44.1 kHz)", 44100, B_MAIN, FS, False),
+        ("NaN/+Inf in x, B=4 C=2 T=2560 fragm 2400", 48000, 4, 2560, True),
+    ]:
+        x = (0.3 * rng.standard_normal((B, 2, T))).astype(np.float32)
+        if inject:
+            x[0, 0, 300], x[1, 1, 2500] = np.nan, np.inf
+        z0 = (0.01 * rng.standard_normal((B, 2, 4))).astype(np.float32)
+        h0 = (0.1 * rng.standard_normal((B, 2, 47))).astype(np.float32)
+        xd, zd, hd = (torch.as_tensor(a, device=dev) for a in (x, z0, h0))
+        fragm = fs // 20
+        off = torch.as_tensor(rng.integers(0, fragm, B).astype(np.int32), device=dev)
+        kw = dict(off=off, fragm=fragm, n_slots=T // fragm + 2)
+        op = lti.LTISystem(*design.k_weighting_state_space(fs)).op(128)
+        gains = (1.0, 1.0)
+        got = r128_fused.fused_core(xd, zd, hd, gains, op, **kw)
+        full = r128_fused.fused_core(xd, zd, hd, gains, op)
+        ref, ms = timed_call(lambda: r128_fused.fused_core_reference(xd, zd, hd, gains, op, **kw))
+        via_full = segment.shifted_segments(full[0], off, fragm, kw["n_slots"], "sum")
+        errs = [f"{n} not bit-identical to the full-rate mode"
+                for n, a, b in zip(("z", "hist", "tpmax"), got[1:], full[1:]) if not same_bits(a, b)]
+        seg = got[0].double()
+        parts = []
+        for what, b in (("plain version", ref[0]), ("full-rate kernel + shifted_segments", via_full)):
+            b = b.double()
+            if not same_nonfinite(seg, b):
+                errs.append(f"seg non-finite values differ from the {what}'s")
+            f = torch.isfinite(b)
+            d = (seg - b).abs()[f]
+            e = d.max().item() if d.numel() else 0.0
+            if d.numel() and bool((d > SEG_RTOL * b.abs()[f] + SEG_ATOL).any()):
+                errs.append(f"seg vs the {what}: err {e:.3g}")
+            parts.append(f"vs the {what} {e:.3g} (max seg {b.abs()[f].max().item():.4g})")
+            if what == "plain version" and B == B_MAIN and fs == 48000:
+                main_err, plain_ms = e, ms
+        print(f"  r128_fused seg mode {tag}: seg max abs err {', '.join(parts)}; z, hist, tpmax "
+              f"bit-identical to full rate {not any('full-rate' in e for e in errs)}: "
+              f"{'ok' if not errs else 'FAIL ' + '; '.join(errs)}")
+        failures += [f"r128_fused seg mode {tag}: {e}" for e in errs]
+    return main_err, plain_ms, failures
+
+
+def wide_kernel_cases(dev):
+    """surround_fused's wide layout against its plain version and against the
+    narrow kernel at the narrow kernel's bars (km_z, zl and pk bit-identical to
+    the narrow kernel: the same operations), at C=5 and C=8 with B=256
+    T=48000, with runtime pairs, and with NaN / +Inf / -Inf samples.
+    Returns (max abs error vs the plain version at C=8, B=256, breaches)."""
+    from meters_lv2_torch.ops import surround_fused
+
+    failures, main_err = [], 0.0
+    for tag, C, B, T, pairs, inject in [
+        (f"main-path shape B={B_MAIN} C=5 T={FS}", 5, B_MAIN, FS, None, False),
+        (f"main-path shape B={B_MAIN} C=8 T={FS}", 8, B_MAIN, FS, None, False),
+        ("B=5 C=5 T=1280, pairs 0:0 1:1 0:1 2:3", 5, 5, 1280, [[0, 0], [1, 1], [0, 1], [2, 3]],
+         False),
+        ("NaN/+Inf/-Inf in x, B=5 C=5 T=1280", 5, 5, 1280, None, True),
+        ("NaN/+Inf/-Inf in x, B=5 C=8 T=1280", 8, 5, 1280, None, True),
+    ]:
+        args = surround_args(C, B, T, B + C + 1, dev, pairs, inject)
+        got = surround_fused.fused_core_wide(*args)
+        narrow = surround_fused.fused_core(*args)
+        ref = surround_fused.fused_core_reference(*args)
+        err, errs = compare_surround(got, ref, f"wide vs plain version, {tag}")
+        _, errs_n = compare_surround(got, narrow, f"wide vs narrow kernel, {tag}")
+        errs += errs_n
+        if not all(same_bits(a, b) for a, b in zip(got[:3], narrow[:3])):
+            errs.append("km_z, zl, pk not bit-identical to the narrow kernel")
+        failures += [f"surround_fused wide {tag}: {e}" for e in errs]
+        if B == B_MAIN and C == 8:
+            main_err = err
+        del args, got, narrow, ref
+    return main_err, failures
+
+
+def variants_main(dev, blocks_dev, reset_counts, all_counts):
+    """The main path with each variant on: BBCstereo and BBCM6 over the 12
+    blocks with the envelope, held against the serial run on the card;
+    R128's fragment sums in seg mode (fused_core with the carried state and
+    offset over the 12 blocks), held against the full-rate kernel and
+    shifted_segments; surround5 and surround8 over the 12 blocks in the wide
+    layout, held against the narrow run.  Launch counts checked.  Returns
+    (envelope, seg, wide) launches."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import ballistics_core, r128_fused, segment, surround_fused
+
+    def run(m, init, xs, var, flag):
+        with env_set(var, flag):
+            st = init()
+            reset_counts()
+            for xb in xs:
+                st = m.update(st, xb)
+            out = readouts(m.read(st)[0])
+            torch.cuda.synchronize()
+        return out, all_counts()
+
+    env_launches = wide_launches = 0
+    for name, batch in (("BBCstereo", (B_MAIN, 2)), ("BBCM6", (B_MAIN,))):
+        m = meters_lv2_torch.create(name, FS)
+        init = lambda: m.init(batch, device=dev)  # noqa: E731
+        out_s, _ = run(m, init, blocks_dev, ENV_VAR, "0")
+        out_e, cnt = run(m, init, blocks_dev, ENV_VAR, "1")
+        n = ballistics_core.envelope_launch_count
+        if n != len(blocks_dev) or sum(cnt) != n:
+            fail(f"main path {name} with the envelope: envelope launches {n}, counts {cnt}")
+        env_launches += n
+        worst = 0.0
+        for k, v in out_e.items():
+            ref = out_s[k]
+            if v.shape != batch or not bool(torch.isfinite(v).all()):
+                fail(f"main path {name} with the envelope: readout {k} not finite of shape {batch}")
+            d = (v - ref).abs()
+            worst = max(worst, (d / (ref.abs() + 1e-30)).max().item())
+            if bool((d > ENV_RTOL * ref.abs() + ENV_ATOL).any()):
+                fail(f"main path {name}: envelope vs serial readout {k} off by {d.max().item()}")
+        print(f"phase main: ok: {name} {len(blocks_dev)} x 1 s blocks with {ENV_VAR}=1, envelope "
+              f"launches {n} (serial 0); readouts vs the serial run on the card: worst relative "
+              f"{worst:.3g} (bar {ENV_RTOL} + {ENV_ATOL})")
+
+    # R128's fragment sums in seg mode, the stream's state carried block to block
+    meter = meters_lv2_torch.create("EBUr128", FS, nchan=2)
+    op, gains = meter.sys.op(128), meter.gains
+    off0 = torch.as_tensor(np.random.default_rng(5).integers(0, FRAGM, B_MAIN).astype(np.int32),
+                           device=dev)
+    z0 = torch.zeros((B_MAIN, 2, 4), device=dev)
+    h0 = torch.zeros((B_MAIN, 2, 47), device=dev)
+    reset_counts()
+    off, z, h, segs = off0, z0, h0, []
+    for xb in blocks_dev:
+        seg, z, h, tpm = r128_fused.fused_core(xb, z, h, gains, op, off=off, fragm=FRAGM,
+                                               n_slots=N_SLOTS)
+        segs.append((seg, z, h, tpm))
+        off = (off + FS) % FRAGM
+    torch.cuda.synchronize()
+    seg_launches, cnt = r128_fused.seg_launch_count, all_counts()
+    if seg_launches != len(blocks_dev) or sum(cnt) != seg_launches:
+        fail(f"main path R128 seg mode: seg launches {seg_launches}, other counts {cnt}")
+    off, z, h, worst = off0, z0, h0, 0.0
+    for xb, (seg, zs, hs, ts) in zip(blocks_dev, segs):
+        p, z, h, tpm = r128_fused.fused_core(xb, z, h, gains, op)
+        ref = segment.shifted_segments(p, off, FRAGM, N_SLOTS, "sum")
+        off = (off + FS) % FRAGM
+        if not (same_bits(zs, z) and same_bits(hs, h) and same_bits(ts, tpm)):
+            fail("main path R128 seg mode: z, hist or tpmax not bit-identical to full rate")
+        d = (seg - ref).abs()
+        worst = max(worst, d.max().item())
+        if not bool(torch.isfinite(seg).all()) or bool((d > SEG_RTOL * ref.abs() + SEG_ATOL).any()):
+            fail(f"main path R128 seg mode: seg vs full rate + shifted_segments off by "
+                 f"{d.max().item()}")
+    print(f"phase main: ok: R128 fragment sums in seg mode, {len(blocks_dev)} x 1 s blocks at "
+          f"B={B_MAIN} (fragm {FRAGM}, {N_SLOTS} slots, random offsets carried), seg launches "
+          f"{seg_launches}; vs the full-rate kernel + shifted_segments: max abs err {worst:.3g}, "
+          f"z / hist / tpmax bit-identical")
+
+    for name in ("surround5", "surround8"):
+        m = meters_lv2_torch.create(name, FS)
+        xs = surround_blocks(m.nchan, blocks_dev)
+        init = lambda: m.init((B_MAIN,))  # noqa: E731
+        out_n, _ = run(m, init, xs, WIDE_VAR, "0")
+        out_w, cnt = run(m, init, xs, WIDE_VAR, "1")
+        n = surround_fused.wide_launch_count
+        if n != len(xs) or sum(cnt) != n:
+            fail(f"main path {name} wide: wide launches {n}, counts {cnt}")
+        wide_launches += n
+        for k, v in out_w.items():
+            if not bool(torch.isfinite(v).all()):
+                fail(f"main path {name} wide: readout {k} not finite")
+        d_db = max(level_db_diff(out_w[k], out_n[k]) for k in ("level", "peak"))
+        d_cor = (out_w["correlation"] - out_n["correlation"]).abs().max().item()
+        if not (d_db < STATS_TOL_DB and d_cor < COR_TOL):
+            fail(f"main path {name} wide vs narrow: {d_db} dB, correlation {d_cor}")
+        print(f"phase main: ok: {name} {len(xs)} x 1 s blocks with {WIDE_VAR}=1, wide launches "
+              f"{n} (narrow 0); vs the narrow run on the card: level/peak {d_db:.3g} dB, "
+              f"correlation {d_cor:.3g}")
+        del xs
+    return env_launches, seg_launches, wide_launches
+
+
+def variants_golden(dev):
+    """Every fixture of the families whose ballistics reach the envelope
+    (DIN, BBC and BBC M-6: iec1*, iec2*, msppm*) through it, and the four
+    surround fixtures through the wide layout, on the card."""
+    from signals import make_signal
+    from test_torch_golden_ballistics import FAMILIES, run_family
+    import test_torch_golden_surround as gsur
+
+    from meters_lv2_torch.ops import ballistics_core, surround_fused
+
+    gw = []
+    ballistics_core.launch_count = ballistics_core.envelope_launch_count = 0
+    with env_set(ENV_VAR):
+        for prefix in FAMILIES:
+            if not prefix.startswith(("iec1", "iec2", "msppm")):
+                continue
+            try:
+                worst, n = run_family(prefix, make_signal, device=dev)
+            except AssertionError as e:
+                fail(f"golden {prefix} with the envelope: {e}")
+            gw.append(f"{prefix} {n} values worst {worst:.3g} dB")
+    n_env, n_ser = ballistics_core.envelope_launch_count, ballistics_core.launch_count
+    if not n_env or n_ser:
+        fail(f"golden with the envelope: envelope launches {n_env}, serial {n_ser}")
+    print(f"phase golden: ok: with {ENV_VAR}=1 ({n_env} envelope launches, 0 serial): "
+          f"{'; '.join(gw)}")
+    gw = []
+    surround_fused.launch_count = surround_fused.wide_launch_count = 0
+    with env_set(WIDE_VAR):
+        for prefix in gsur.PREFIXES:
+            try:
+                worst_db, worst_cor, n = gsur.run_surround(prefix, device=dev)
+            except AssertionError as e:
+                fail(f"golden {prefix} wide: {e}")
+            gw.append(f"{prefix}_mix {n} values, level/peak worst {worst_db:.3g} dB, "
+                      f"correlation worst {worst_cor:.3g}")
+    n_w, n_n = surround_fused.wide_launch_count, surround_fused.launch_count
+    if not n_w or n_n:
+        fail(f"golden surround wide: wide launches {n_w}, narrow {n_n}")
+    print(f"phase golden: ok: surround fixtures, whole, with {WIDE_VAR}=1 ({n_w} wide launches, "
+          f"0 narrow): {'; '.join(gw)}")
+
+
+def x_realtime(m, init, xs, n):
+    """(x-realtime, per-update ms, run seconds) of n updates of meter m at
+    B_MAIN streams over the blocks xs, best of two runs after a warm update;
+    each run ends in a host copy of the readouts."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        st = m.update(init(), xs[0])  # warm
+        st = init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            st = m.update(st, xs[i % len(xs)])
+        out, _ = m.read(st)
+        torch.cuda.synchronize()
+        [v.cpu() for v in readouts(out).values()]
+        runs.append(time.perf_counter() - t0)
+    return B_MAIN * n / min(runs), min(runs) / n * 1e3, [round(r, 4) for r in runs]
+
+
+def variants_times(dev, blocks_dev, gpu, t_abs, zs, w_ppm, sur_plain):
+    """The variants against their defaults in this call, alternating
+    (default, variant, variant, default): the envelope against the serial
+    kernel at N=512; seg mode against the full-rate kernel followed by
+    shifted_segments, and its plain version, at [256, 2, 48000]; the wide
+    layout against the narrow one at C=5 and C=8 (the plain version's ms
+    are the narrow phase's, the same function); BBCstereo, surround5 and
+    surround8 x-realtime with each variant on.  Returns {name: (ms, plain
+    ms)} for the kernels JSON line."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import ballistics_core, design, lti, r128_fused, segment
+    from meters_lv2_torch.ops import surround_fused
+
+    out = {}
+    ser, env = [], []
+    for w in "seeS":
+        fn = (lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False,
+                                                 envelope=w == "e"))
+        (env if w == "e" else ser).append(cuda_ms(fn, 10))
+    out["envelope"] = statistics.mean(env)
+    print(f"phase times: ballistics envelope kernel {out['envelope']:.4f} ms (medians {env}), "
+          f"serial kernel {statistics.mean(ser):.4f} ms (medians {ser}) at N={2 * B_MAIN} "
+          f"T={FS} [{gpu}]")
+
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor((0.3 * rng.standard_normal((B_MAIN, 2, FS))).astype(np.float32),
+                        device=dev)
+    z0 = torch.zeros((B_MAIN, 2, 4), device=dev)
+    h0 = torch.zeros((B_MAIN, 2, 47), device=dev)
+    off = torch.as_tensor(rng.integers(0, FRAGM, B_MAIN).astype(np.int32), device=dev)
+    op = lti.LTISystem(*design.k_weighting_state_space(FS)).op(128)
+    kw = dict(off=off, fragm=FRAGM, n_slots=N_SLOTS)
+    gains = (1.0, 1.0)
+
+    def full_then_segments():
+        p = r128_fused.fused_core(x, z0, h0, gains, op)[0]
+        return segment.shifted_segments(p, off, FRAGM, N_SLOTS, "sum")
+
+    seg_k, full_k, seg_p = [], [], []
+    for w in "fssf":
+        if w == "s":
+            seg_k.append(cuda_ms(lambda: r128_fused.fused_core(x, z0, h0, gains, op, **kw), 10))
+        else:
+            full_k.append(cuda_ms(full_then_segments, 10))
+    for _ in range(2):
+        seg_p.append(cuda_ms(lambda: r128_fused.fused_core_reference(x, z0, h0, gains, op, **kw),
+                             3))
+    out["seg"] = (statistics.mean(seg_k), statistics.mean(seg_p))
+    print(f"phase times: r128_fused seg mode {out['seg'][0]:.4f} ms (medians {seg_k}), full-rate "
+          f"kernel + shifted_segments {statistics.mean(full_k):.4f} ms (medians {full_k}), plain "
+          f"version {out['seg'][1]:.4f} ms (medians {seg_p}) at B={B_MAIN} C=2 T={FS} fragm "
+          f"{FRAGM} [{gpu}]")
+    del x
+
+    for C in (5, 8):
+        args = surround_args(C, B_MAIN, FS, 7, dev)
+        wide, narrow = [], []
+        for w in "nwwn":
+            fn = surround_fused.fused_core_wide if w == "w" else surround_fused.fused_core
+            (wide if w == "w" else narrow).append(cuda_ms(lambda: fn(*args), 10))
+        out[f"wide C={C}"] = (statistics.mean(wide), sur_plain[C])
+        print(f"phase times: surround_fused wide layout {statistics.mean(wide):.4f} ms (medians "
+              f"{wide}), narrow {statistics.mean(narrow):.4f} ms (medians {narrow}), plain "
+              f"version {sur_plain[C]:.4f} ms (phase times above) at B={B_MAIN} C={C} P=4 "
+              f"T={FS} [{gpu}]")
+        del args
+
+    m = meters_lv2_torch.create("BBCstereo", FS)
+    for flag in ("0", "1"):
+        with env_set(ENV_VAR, flag):
+            xrt, ms, runs = x_realtime(m, lambda: m.init((B_MAIN, 2), device=dev), blocks_dev,
+                                       N_STATS)
+        print(f"phase times: BBCstereo {ENV_VAR}={flag} {xrt:.1f} x-realtime ({ms:.3f} ms per "
+              f"update; runs {runs} s for {N_STATS} x 1 s blocks at B={B_MAIN}) [{gpu}]")
+    for name in ("surround5", "surround8"):
+        m = meters_lv2_torch.create(name, FS)
+        xs = surround_blocks(m.nchan, blocks_dev)
+        for flag in ("0", "1"):
+            with env_set(WIDE_VAR, flag):
+                xrt, ms, runs = x_realtime(m, lambda: m.init((B_MAIN,)), xs, N_STATS)
+            print(f"phase times: {name} {WIDE_VAR}={flag} {xrt:.1f} x-realtime ({ms:.3f} ms per "
+                  f"update; runs {runs} s for {N_STATS} x 1 s blocks at B={B_MAIN}) [{gpu}]")
+        del xs
+    return out
+
+
 class ProcessAsUpdate:
     """An analyzer seen through the update(state, x) -> state protocol of
     device_us_per_update."""
@@ -1314,6 +1796,9 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test runs the "
              "port on an NVIDIA GPU and does not run on the CPU")
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    for var in (ENV_VAR, WIDE_VAR):  # the default paths run with the switches unset
+        if os.environ.pop(var, None) is not None:
+            print(f"chip_smoke: {var} unset for the default paths")
     try:
         import meters_lv2_torch
         from meters_lv2_torch.ops import (
@@ -1484,6 +1969,12 @@ def main():
     failures += errs
     stft_err, errs = stft_kernel_cases(dev)
     failures += errs
+    env_err, env_plain_ms, errs = envelope_kernel_cases(dev, w_ppm)
+    failures += errs
+    seg_err, seg_plain_ms, errs = seg_kernel_cases(dev)
+    failures += errs
+    wide_err, errs = wide_kernel_cases(dev)
+    failures += errs
     if failures:
         fail("kernel vs plain: " + " | ".join(failures))
     print("phase kernels: ok")
@@ -1528,19 +2019,20 @@ def main():
           f"vs CPU: worst readout diff {worst:.3g} dB, dbtp {tp_db:.3g} dB, histograms exact")
 
     def reset_counts():
-        r128_fused.launch_count = 0
-        ballistics_core.launch_count = 0
+        r128_fused.launch_count = r128_fused.seg_launch_count = 0
+        ballistics_core.launch_count = ballistics_core.envelope_launch_count = 0
         truepeak_fused.launch_count = 0
         bitmeter_stats.launch_count = 0
         spectrum_fused.launch_count = 0
-        surround_fused.launch_count = 0
+        surround_fused.launch_count = surround_fused.wide_launch_count = 0
         stft_fused.launch_count = 0
 
     def all_counts():
         return (r128_fused.launch_count, ballistics_core.launch_count,
                 truepeak_fused.launch_count, bitmeter_stats.launch_count,
                 spectrum_fused.launch_count, surround_fused.launch_count,
-                stft_fused.launch_count)
+                stft_fused.launch_count, ballistics_core.envelope_launch_count,
+                r128_fused.seg_launch_count, surround_fused.wide_launch_count)
 
     def counts():
         return ballistics_core.launch_count, truepeak_fused.launch_count
@@ -1687,6 +2179,9 @@ def main():
     marks.append(("main surround", time.perf_counter()))
     stft_launches = analyzers_main(dev, blocks3, reset_counts, all_counts)
     marks.append(("main analyzers", time.perf_counter()))
+    env_launches, seg_launches, wide_launches = variants_main(
+        dev, blocks_dev, reset_counts, all_counts)
+    marks.append(("main variants", time.perf_counter()))
 
     # -- 5. golden fixtures -------------------------------------------------
     gw = []
@@ -1733,6 +2228,8 @@ def main():
     marks.append(("golden surround", time.perf_counter()))
     analyzers_golden(dev)
     marks.append(("golden analyzers", time.perf_counter()))
+    variants_golden(dev)
+    marks.append(("golden variants", time.perf_counter()))
 
     # -- 6. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
@@ -1809,9 +2306,9 @@ def main():
     scale = []
     for N in (4224, 12672, 33792):
         zn = [torch.zeros(N, device=dev) for _ in range(4)]
-        ms = cuda_ms(lambda: ballistics_core.ballistics(
-            t_big[:N], *zn, **w_ppm, track_peak=False), 5)
-        scale.append(f"N={N} {ms:.4f} ms")
+        ms = [cuda_ms(lambda: ballistics_core.ballistics(
+            t_big[:N], *zn, **w_ppm, track_peak=False, envelope=env), 5) for env in (False, True)]
+        scale.append(f"N={N} {ms[0]:.4f} ms (envelope {ms[1]:.4f} ms)")
     del t_big
     print(f"phase times: ballistics kernel alone at T={FS}: {', '.join(scale)} [{gpu}]")
     n_chunks = 60
@@ -1859,6 +2356,9 @@ def main():
     marks.append(("times surround", time.perf_counter()))
     times["stft_fused"] = analyzers_times(dev, blocks3, gpu)
     marks.append(("times analyzers", time.perf_counter()))
+    var_times = variants_times(dev, blocks_dev, gpu, t_abs, zs, w_ppm,
+                               {C: sur_ms[C][1] for C in sur_ms})
+    marks.append(("times variants", time.perf_counter()))
     print("phase times: seconds per phase: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
@@ -1872,8 +2372,8 @@ def main():
     n_r128 = B_MAIN * 2 * FS  # samples at the main-path shape
     n_rows = 2 * B_MAIN * FS  # ballistics / truepeak_fused samples
     bounds = {
-        # x in, p out; FIR 2*4*48 + block LTI 2*128 + state maps 16 + 7
-        "r128_fused": bound(4 * n_r128 + 4 * B_MAIN * FS, 663 * n_r128),
+        # x in, p out; the function's R128_OPS a channel-sample
+        "r128_fused": bound(4 * n_r128 + 4 * B_MAIN * FS, R128_OPS * n_r128),
         # t in; 9 fp32 operations a sample (two attacks of 4, release, max)
         "ballistics": bound(4 * n_rows, 9 * n_rows),
         # x in; FIR 2*4*48, |.|, and 4 ballistics steps of 9
@@ -1894,6 +2394,14 @@ def main():
             4 * B_MAIN * C * FS + 4 * B_MAIN * C * (2 * 3 + 1) + 4 * B_MAIN * 4 * 3,
             B_MAIN * FS * (SUR_OPS_CHAN * C + 4 * sur_ops_pair(C)))
     bounds["surround_fused"] = bounds["surround_fused C=8"]
+    # the variants compute the same functions: the envelope the ballistics
+    # function, the wide layout the surround function; seg mode writes
+    # n_slots sums a stream instead of p and adds each p sample into one
+    bounds["ballistics envelope"] = bounds["ballistics"]
+    bounds["r128_fused seg mode"] = bound(4 * n_r128 + 4 * B_MAIN * N_SLOTS,
+                                          R128_OPS * n_r128 + B_MAIN * FS)
+    for C in (5, 8):
+        bounds[f"surround_fused wide C={C}"] = bounds[f"surround_fused C={C}"]
     # the frames' samples of ext in, dphi and level out, at the phase wheel's
     # main-path shape
     bounds["stft_fused"] = bound(*stft_bound(B_MAIN, ANA_W, ANA_F, ANA_HOP))
@@ -1905,6 +2413,10 @@ def main():
     print(f"phase times: spectrum_fused blocked form {181 * B_MAIN * FS * 30 / 1e9:.1f} GFLOP, "
           f"{181 * B_MAIN * FS * 30 / FP32_FLOPS * 1e3:.4f} ms at peak, {181 / SPEC_OPS:.2f}x "
           f"the function's {SPEC_OPS} operations a band-sample [{gpu}]")
+    print(f"phase times: r128_fused blocked form {R128_BLOCKED_OPS * n_r128 / 1e9:.1f} GFLOP, "
+          f"{R128_BLOCKED_OPS * n_r128 / FP32_FLOPS * 1e3:.4f} ms at peak, "
+          f"{R128_BLOCKED_OPS / R128_OPS:.2f}x the function's {R128_OPS} operations a "
+          f"channel-sample [{gpu}]")
 
     for mod in ("jax", "meters_lv2_tpu"):
         if mod in sys.modules:
@@ -1995,6 +2507,42 @@ def main():
         # torch.fft.rfft of the windowed frames: the transform only, without
         # framing, window or the per-bin analysis
         "library_ms": times["stft_fused"][2],
+    }, {
+        "name": "ballistics_envelope",
+        "route": "cuda",
+        "source": "meters_lv2_torch/csrc/ballistics.cu",  # group_env_step: ballistics_step.cuh
+        "replaces": "meters_lv2_tpu/ops/pallas_ballistics.py:61",
+        "launches": env_launches,  # BBCstereo and BBCM6 with METERS_TORCH_BALLISTICS_ENV=1
+        "max_abs_err": env_err,  # at N=512 vs plain version (bit-exact); vs serial in phase kernels
+        "ms": var_times["envelope"],
+        "plain_ms": env_plain_ms,
+        "bound_ms": bounds["ballistics envelope"][0],
+        "bound_by": bounds["ballistics envelope"][1],
+        "library_ms": None,
+    }, {
+        "name": "r128_fused_seg",
+        "route": "cuda",
+        "source": "meters_lv2_torch/csrc/r128_fused.cu",
+        "replaces": "meters_lv2_tpu/ops/pallas_r128.py:298",
+        "launches": seg_launches,  # the 12 main-path blocks through fused_core(off=...)
+        "max_abs_err": seg_err,  # seg at the main-path shape, vs plain version
+        "ms": var_times["seg"][0],
+        "plain_ms": var_times["seg"][1],
+        "bound_ms": bounds["r128_fused seg mode"][0],
+        "bound_by": bounds["r128_fused seg mode"][1],
+        "library_ms": None,
+    }, {
+        "name": "surround_fused_wide",
+        "route": "cuda",
+        "source": "meters_lv2_torch/csrc/surround_wide.cu",
+        "replaces": "meters_lv2_tpu/ops/pallas_surround.py:252",
+        "launches": wide_launches,  # surround5 and surround8 with METERS_TORCH_SURROUND_WIDE=1
+        "max_abs_err": wide_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000, vs plain
+        "ms": var_times["wide C=8"][0],  # C=5 is printed in phase times
+        "plain_ms": var_times["wide C=8"][1],
+        "bound_ms": bounds["surround_fused wide C=8"][0],
+        "bound_by": bounds["surround_fused wide C=8"][1],
+        "library_ms": None,
     }]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,18 @@
 // PPM / true-peak attack-release recurrence for NVIDIA Hopper (sm_90a).
 //
 // Replaces meters_lv2_tpu/ops/pallas_ballistics.py::ballistics_pallas
-// (the Pallas TPU kernel, envelope=False).  For each row n of t [N, T],
-// per 4-sample group, the step of ballistics_step.cuh:
+// (the Pallas TPU kernel, both of its bodies).  For each row n of t [N, T],
+// per 4-sample group, the serial step of ballistics_step.cuh:
 //   z1 *= w3, z2 *= w3; per sample t:
 //     z1 = t > z1 ? z1 + w1*(t - z1) : z1   (same for z2 with w2)
 //     p  = t > p  ? t : p                   (track_peak only)
 //   m = max(m, z1 + z2), NaN-propagating like torch.maximum.
 // Bit-exact to the plain PyTorch version (ops/ballistics_core.py::
-// ballistics_reference); denormals are kept (no fast-math).
+// ballistics_reference); denormals are kept (no fast-math).  With
+// `envelope` set, each group runs ballistics_step.cuh's group_env_step
+// instead (the TPU kernel's envelope=True body), bit-exact to
+// ballistics_envelope_reference: the same max-of-affine result with the
+// max-plus DP off the carried chain.
 //
 // What bounds it: each row is a serial chain of T dependent steps (about
 // four dependent fp32 operations per sample, 12,000 groups per second of
@@ -37,9 +41,10 @@
 // per SM; 2 x 256 samples (66.5 KB, three CTAs per SM) take 0.76 ms, flat
 // up to 132*3*32 = 12,672 rows (0.77 ms at 8,448), then 1.55 ms at 16,896
 // and 2.34 ms at 33,792.  Shorter tiles fit more CTAs but cost more per
-// sample (2 x 128: 0.95 ms at N=512).  The time-parallel max-plus group
-// form (the TPU kernel's envelope body) is the answer to the chain itself
-// and is later work.
+// sample (2 x 128: 0.95 ms at N=512).  The envelope body shortens the
+// carried chain per group but issues about twice the instructions of the
+// serial one, all from one thread per row: 1.15 ms against 0.89 at N=512
+// (H100 80GB HBM3, 700 W, the two alternated in one run).
 
 #include <cuda_runtime.h>
 
@@ -59,12 +64,13 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <bool kTrackPeak>
+template <bool kTrackPeak, bool kEnvelope>
 __global__ void __launch_bounds__(kRows)
 ballistics_kernel(const float* __restrict__ t, const float* __restrict__ z1in,
                   const float* __restrict__ z2in, const float* __restrict__ m_in,
                   const float* __restrict__ pin, int N, int T, float w1,
-                  float w2, float w3, float* __restrict__ z1out,
+                  float w2, float w3, ballistics::EnvCoeffs k1,
+                  ballistics::EnvCoeffs k2, float* __restrict__ z1out,
                   float* __restrict__ z2out, float* __restrict__ mout,
                   float* __restrict__ pout) {
   extern __shared__ __align__(128) float s_buf[];  // [kSlots][kRows][kPitch]
@@ -133,8 +139,12 @@ ballistics_kernel(const float* __restrict__ t, const float* __restrict__ z1in,
           reinterpret_cast<const float4*>(s_buf + (slot * kRows + lane) * kPitch);
       const int ngroups = min(kTile, T - k * kTile) / 4;
 #pragma unroll 4
-      for (int g = 0; g < ngroups; ++g)
-        ballistics::group_step<kTrackPeak>(src[g], w1, w2, w3, z1, z2, m, p);
+      for (int g = 0; g < ngroups; ++g) {
+        if (kEnvelope)
+          ballistics::group_env_step<kTrackPeak>(src[g], k1, k2, w3, z1, z2, m, p);
+        else
+          ballistics::group_step<kTrackPeak>(src[g], w1, w2, w3, z1, z2, m, p);
+      }
     }
     __syncwarp();
     if (k + kSlots < ntile) issue(k + kSlots);
@@ -154,21 +164,32 @@ extern "C" {
 
 // Launches the kernel on `stream`; returns the cudaError_t of the launch.
 // t [N, T] row-major, 16-byte aligned, T % 4 == 0; states [N]; every
-// pointer is a device pointer.
+// pointer is a device pointer except `env_dec`.  `envelope` selects the
+// group-envelope body; env_dec (host, 8 floats) then holds c_1..c_4,
+// c_k = 1 - (1 - w1)^k, then the same for w2, and is not read otherwise.
 int ballistics_launch(const float* t, const float* z1, const float* z2,
                       const float* m, const float* p, int N, int T, float w1,
-                      float w2, float w3, int track_peak, float* z1out,
-                      float* z2out, float* mout, float* pout, void* stream) {
+                      float w2, float w3, int track_peak, int envelope,
+                      const float* env_dec, float* z1out, float* z2out,
+                      float* mout, float* pout, void* stream) {
   if (N <= 0 || T <= 0 || T % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (N + kRows - 1) / kRows;
-  auto kernel = track_peak ? ballistics_kernel<true> : ballistics_kernel<false>;
+  ballistics::EnvCoeffs k1{w1, 0.f, 0.f, 0.f, 0.f}, k2{w2, 0.f, 0.f, 0.f, 0.f};
+  if (envelope) {
+    k1 = {w1, env_dec[0], env_dec[1], env_dec[2], env_dec[3]};
+    k2 = {w2, env_dec[4], env_dec[5], env_dec[6], env_dec[7]};
+  }
+  auto kernel = envelope ? (track_peak ? ballistics_kernel<true, true>
+                                       : ballistics_kernel<false, true>)
+                         : (track_peak ? ballistics_kernel<true, false>
+                                       : ballistics_kernel<false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kRows, kSmem, st>>>(t, z1, z2, m, p, N, T, w1, w2, w3, z1out,
-                                     z2out, mout, pout);
+  kernel<<<grid, kRows, kSmem, st>>>(t, z1, z2, m, p, N, T, w1, w2, w3, k1, k2,
+                                     z1out, z2out, mout, pout);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,4 +46,72 @@ __device__ __forceinline__ void group_step(float4 v, float w1, float w2,
   m = max_nan(m, __fadd_rn(z1, z2));
 }
 
+// The envelope body of one 4-sample group (the JAX kernel's group_env,
+// pallas_ballistics.py:61-107), bit-exact to the plain PyTorch version
+// (ops/ballistics_core.py::ballistics_envelope_reference).  Each sample
+// step is z' = max(z, (1-w) z + w t), so with d = w3 z a group is exactly
+//   z' = max(d, d + (b_k - d c_k)),  k = 1..4,  c_k = 1 - (1-w)^k,
+// where b_k, the best result of k attacks on a zero state, comes from a
+// max-plus DP over the group's samples that never reads z: it overlaps the
+// carried chain, which shrinks to the multiply d, a multiply, two adds and
+// a 4-deep max.  A DP attack is the serial step b + w (t - b), so the DP
+// rounds as the serial chain does; c_k comes from the host, a float64
+// value rounded once (a float32 a^k would bias the decay of every group by
+// up to half an ulp, which the recurrence multiplies by about 1 / w).
+// A NaN sample enters as -inf and cannot attack.  fmaxf drops a NaN
+// candidate (-inf meeting +inf, either way round), so a NaN next to a
+// +Inf, a +Inf after the group's first sample, or a +Inf state meeting a
+// b_k of -inf all give the serial body's answer; a NaN z makes every
+// candidate NaN and stays NaN.  Every step is written with __fmul_rn /
+// __fadd_rn / __fsub_rn, so nothing is contracted into an FMA.
+
+struct EnvCoeffs {
+  float w, c1, c2, c3, c4;  // w and c_k = 1 - (1 - w)^k
+};
+
+__device__ __forceinline__ float env_attack(float b, float t, float w) {
+  return __fadd_rn(b, __fmul_rn(__fsub_rn(t, b), w));
+}
+
+__device__ __forceinline__ float env_cand(float d, float b, float c) {
+  return __fadd_rn(d, __fsub_rn(b, __fmul_rn(d, c)));
+}
+
+__device__ __forceinline__ float group_env(float z, float w3, const EnvCoeffs& k,
+                                           const float ts[4]) {
+  const float ninf = -__int_as_float(0x7f800000);
+  const float w = k.w;
+  // the DP in the plain version's order; b3 and b4 before samples 2 and 3
+  // can only be -inf and are not computed
+  float b1 = __fmul_rn(ts[0], w);
+  float b2 = fmaxf(ninf, env_attack(b1, ts[1], w));
+  b1 = fmaxf(b1, __fmul_rn(ts[1], w));
+  float b3 = fmaxf(ninf, env_attack(b2, ts[2], w));
+  b2 = fmaxf(b2, env_attack(b1, ts[2], w));
+  b1 = fmaxf(b1, __fmul_rn(ts[2], w));
+  const float b4 = fmaxf(ninf, env_attack(b3, ts[3], w));
+  b3 = fmaxf(b3, env_attack(b2, ts[3], w));
+  b2 = fmaxf(b2, env_attack(b1, ts[3], w));
+  b1 = fmaxf(b1, __fmul_rn(ts[3], w));
+  const float d = __fmul_rn(z, w3);
+  float out = fmaxf(d, env_cand(d, b1, k.c1));
+  out = fmaxf(out, env_cand(d, b2, k.c2));
+  out = fmaxf(out, env_cand(d, b3, k.c3));
+  return fmaxf(out, env_cand(d, b4, k.c4));
+}
+
+template <bool kTrackPeak>
+__device__ __forceinline__ void group_env_step(float4 v, const EnvCoeffs& k1,
+                                               const EnvCoeffs& k2, float w3,
+                                               float& z1, float& z2, float& m,
+                                               float& p) {
+  const float ninf = -__int_as_float(0x7f800000);
+  const float ts[4] = {v.x == v.x ? v.x : ninf, v.y == v.y ? v.y : ninf,
+                       v.z == v.z ? v.z : ninf, v.w == v.w ? v.w : ninf};
+  z1 = group_env(z1, w3, k1, ts);
+  z2 = group_env(z2, w3, k2, ts);
+  if (kTrackPeak) p = max_nan(p, fmaxf(fmaxf(ts[0], ts[1]), fmaxf(ts[2], ts[3])));
+  m = max_nan(m, __fadd_rn(z1, z2));
+}
+
 }  // namespace ballistics

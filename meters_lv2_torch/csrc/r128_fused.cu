@@ -8,6 +8,12 @@
 //   z[b, c]    = the K-weighting state after the block;
 //   hist[b, c] = x[b, c, T-47 : T], the true-peak history;
 //   tpmax[b]   = max over c, t, phase of |up4(x)|, NaN oversamples skipped.
+// Seg mode (the TPU kernel's seg_info, pallas_r128.py:298-326), with off [B]
+// int32, fragm > 128 and n_slots: instead of p, the per-fragment sums
+//   seg[b, s]  = sum of p[b, t] over off[b] + t in [s*fragm, (s+1)*fragm),
+// i.e. segment.shifted_segments(p, off, fragm, n_slots, "sum"); the
+// full-rate p never leaves the SM.  z, hist and tpmax are computed by the
+// same code as in full-rate mode, so they are bit-identical to it.
 // x is channel-major: channel c of stream b starts at (b*C + c)*T, which is
 // the memory of both the flat [B, C*T] and the [B, C, T] layout.
 //
@@ -42,7 +48,17 @@
 // once into a per-channel shared buffer that also keeps the halo; Sy, G and
 // At live in registers; the channel power is summed in a register in fixed
 // channel order (no atomics, reproducible); the 4-value state reduction is
-// a warp shuffle tree plus a fixed-order sum over the four warps.  One CTA
+// a warp shuffle tree plus a fixed-order sum over the four warps.  In seg
+// mode each thread adds its samples' power to a register while the open
+// fragment lasts; the block holding a fragment boundary (a 128-sample block
+// holds at most one, fragm > 128) splits it at the boundary lane, each warp
+// reduces the closing part with a shuffle tree and its lane 0 adds it to
+// the warp's own slot sums in shared memory (no barrier: no other warp
+// touches them).  The boundary is tracked by a countdown, with no division
+// a block.  At the end the four warps' sums are added in a fixed order and
+// written once (n_slots floats a stream instead of T): 1.70 ms at B = 256,
+// C = 2, T = 48000, against 1.64 for full rate and 1.87 for full rate plus
+// shifted_segments (H100 80GB HBM3, 700 W).  One CTA
 // per stream leaves the card under-filled at small batch (256 CTAs on 132
 // SMs at the main-path shape); wgmma/TMA and parallelism across time are
 // later work.
@@ -85,19 +101,23 @@ __device__ __forceinline__ float warp_max(float v) {
 // Shared memory: the Toeplitz operator kmat [128 x 128] (row j = input j,
 // column i = output i), taps [4 x 48], then one kBuf buffer per channel:
 // buf[1 .. 47] is the halo x[t-47 .. t-1], buf[48 .. 175] the current block.
-template <int C>
+// In seg mode kWarps x n_slots floats after the channel buffers hold each
+// warp's slot sums.
+template <int C, bool kSeg>
 __global__ void __launch_bounds__(kBlk)
 r128_fused_kernel(const float* __restrict__ x, const float* __restrict__ z0,
                   const float* __restrict__ hist0,
                   const float* __restrict__ kmat, const float* __restrict__ sy,
                   const float* __restrict__ at, const float* __restrict__ g,
                   const float* __restrict__ taps, Gains gains, int T,
+                  const int* __restrict__ off, int fragm, int n_slots,
                   float* __restrict__ p, float* __restrict__ zout,
                   float* __restrict__ hist_out, float* __restrict__ tpmax) {
   extern __shared__ __align__(16) float smem[];
   float* s_kmat = smem;
   float* s_taps = s_kmat + kBlk * kBlk;
   float* s_buf = s_taps + kPhases * kTaps;
+  float* s_slot = s_buf + C * kBuf;  // seg mode only: [kWarps][n_slots]
   __shared__ float s_red[kWarps][4];
   __shared__ float s_max[kWarps];
   __shared__ int s_nf_lo, s_nf_hi;
@@ -118,6 +138,16 @@ r128_fused_kernel(const float* __restrict__ x, const float* __restrict__ z0,
   if (tid == 0) {
     s_nf_lo = INT_MAX;
     s_nf_hi = -1;
+  }
+  // seg mode: the open slot, its samples left from the block's start, and
+  // this thread's power in it so far
+  int lo = 0, rem = 0;
+  float acc = 0.f;
+  if (kSeg) {
+    for (int k = tid; k < kWarps * n_slots; k += kBlk) s_slot[k] = 0.f;
+    const int off_b = off[b];
+    lo = off_b / fragm;
+    rem = fragm - off_b % fragm;
   }
 
   // this thread's column of Sy and row of G; At (s' = s @ At) in full
@@ -223,7 +253,21 @@ r128_fused_kernel(const float* __restrict__ x, const float* __restrict__ z0,
       }
       __syncthreads();
     }
-    p[b * T + (size_t)blk * kBlk + tid] = pw;
+    if (kSeg) {
+      if (rem > kBlk) {
+        acc += pw;  // the whole block lies in slot lo
+      } else {      // slot lo closes after lane rem - 1 (uniform over the CTA)
+        const bool head = tid < rem;
+        const float part = warp_sum(head ? acc + pw : acc);
+        if (lane == 0 && lo < n_slots) s_slot[warp * n_slots + lo] += part;
+        acc = head ? 0.f : pw;
+        ++lo;
+        rem += fragm;
+      }
+      rem -= kBlk;
+    } else {
+      p[b * T + (size_t)blk * kBlk + tid] = pw;
+    }
   }
 
 #pragma unroll
@@ -234,6 +278,10 @@ r128_fused_kernel(const float* __restrict__ x, const float* __restrict__ z0,
     }
     if (tid < kNh) hist_out[(b * C + c) * kNh + tid] = s_buf[c * kBuf + 1 + tid];
   }
+  if (kSeg) {  // the open slot's part
+    const float part = warp_sum(acc);
+    if (lane == 0 && lo < n_slots) s_slot[warp * n_slots + lo] += part;
+  }
   const float m = warp_max(tp);
   if (lane == 0) s_max[warp] = m;
   __syncthreads();
@@ -243,23 +291,47 @@ r128_fused_kernel(const float* __restrict__ x, const float* __restrict__ z0,
     for (int w = 1; w < kWarps; ++w) v = fmaxf(v, s_max[w]);
     tpmax[b] = v;
   }
+  if (kSeg) {  // every warp's last slot sums were added before the barrier
+    for (int k = tid; k < n_slots; k += kBlk) {
+      float v = s_slot[k];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += s_slot[w * n_slots + k];
+      p[b * (size_t)n_slots + k] = v;
+    }
+  }
+}
+
+template <int C, bool kSeg>
+int launch_mode(const float* x, const float* z0, const float* hist,
+                const float* kmat, const float* sy, const float* at,
+                const float* g, const float* taps, const Gains& gains, int B,
+                int T, const int* off, int fragm, int n_slots, float* p,
+                float* z, float* hist_out, float* tpmax, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (kBlk * kBlk + kPhases * kTaps + C * kBuf +
+                                       (kSeg ? kWarps * n_slots : 0));
+  cudaError_t e = cudaFuncSetAttribute(
+      r128_fused_kernel<C, kSeg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  r128_fused_kernel<C, kSeg><<<B, kBlk, smem, stream>>>(
+      x, z0, hist, kmat, sy, at, g, taps, gains, T, off, fragm, n_slots, p, z,
+      hist_out, tpmax);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int C>
 int launch(const float* x, const float* z0, const float* hist,
            const float* kmat, const float* sy, const float* at,
            const float* g, const float* taps, const Gains& gains, int B,
-           int T, float* p, float* z, float* hist_out, float* tpmax,
-           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (kBlk * kBlk + kPhases * kTaps + C * kBuf);
-  cudaError_t e = cudaFuncSetAttribute(
-      r128_fused_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  r128_fused_kernel<C><<<B, kBlk, smem, stream>>>(
-      x, z0, hist, kmat, sy, at, g, taps, gains, T, p, z, hist_out, tpmax);
-  return static_cast<int>(cudaGetLastError());
+           int T, const int* off, int fragm, int n_slots, float* p, float* z,
+           float* hist_out, float* tpmax, cudaStream_t stream) {
+  if (off)
+    return launch_mode<C, true>(x, z0, hist, kmat, sy, at, g, taps, gains, B, T,
+                                off, fragm, n_slots, p, z, hist_out, tpmax,
+                                stream);
+  return launch_mode<C, false>(x, z0, hist, kmat, sy, at, g, taps, gains, B, T,
+                               off, fragm, n_slots, p, z, hist_out, tpmax,
+                               stream);
 }
 
 }  // namespace
@@ -267,13 +339,18 @@ int launch(const float* x, const float* z0, const float* hist,
 extern "C" {
 
 // Launches the kernel on `stream`; returns the cudaError_t of the launch.
-// Pointers are device pointers except `gains` (host, C floats).
+// Pointers are device pointers except `gains` (host, C floats).  With `off`
+// (int32 [B]) non-null the kernel runs in seg mode and p is seg
+// [B, n_slots]; fragm > 128, n_slots >= 2 and n_slots * fragm >= T + fragm
+// - 1 (the wrapper checks them).
 int r128_fused_launch(const float* x, const float* z0, const float* hist,
                       const float* kmat, const float* sy, const float* at,
                       const float* g, const float* taps, const float* gains,
-                      int B, int C, int T, float* p, float* z,
-                      float* hist_out, float* tpmax, void* stream) {
-  if (B <= 0 || C < 1 || C > kMaxC || T < kBlk || T % kBlk != 0)
+                      int B, int C, int T, const int* off, int fragm,
+                      int n_slots, float* p, float* z, float* hist_out,
+                      float* tpmax, void* stream) {
+  if (B <= 0 || C < 1 || C > kMaxC || T < kBlk || T % kBlk != 0 ||
+      (off && (fragm <= kBlk || n_slots < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   Gains gg{};
   for (int c = 0; c < C; ++c) gg.g[c] = gains[c];
@@ -281,8 +358,8 @@ int r128_fused_launch(const float* x, const float* z0, const float* hist,
   switch (C) {
 #define R128_CASE(N)                                                      \
   case N:                                                                 \
-    return launch<N>(x, z0, hist, kmat, sy, at, g, taps, gg, B, T, p, z, \
-                     hist_out, tpmax, st);
+    return launch<N>(x, z0, hist, kmat, sy, at, g, taps, gg, B, T, off,   \
+                     fragm, n_slots, p, z, hist_out, tpmax, st);
     R128_CASE(1)
     R128_CASE(2)
     R128_CASE(3)

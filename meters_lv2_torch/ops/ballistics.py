@@ -19,6 +19,7 @@ restart after a read, the ``g`` scale and the denormal offsets.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -52,7 +53,11 @@ def ppm_init(batch_shape=(), device="cuda") -> PPMState:
 def _run_ballistics(coeffs: BallisticsCoeffs, t, z1, z2, m, p):
     """The core recurrence over t [..., T] with states [...]; p (raw peak
     tracking) may be None.  The batch is flattened to rows for
-    ballistics_core.ballistics."""
+    ballistics_core.ballistics.
+
+    ``METERS_TORCH_BALLISTICS_ENV=1``, read on each call, selects the
+    group-envelope body (the JAX package's METERS_TPU_BALLISTICS_ENV);
+    the default ``0`` runs the serial body."""
     *batch, T = t.shape
     track_peak = p is not None
     rows = t.reshape(-1, T).contiguous()
@@ -64,6 +69,7 @@ def _run_ballistics(coeffs: BallisticsCoeffs, t, z1, z2, m, p):
         rows, flat(z1), flat(z2), flat(m),
         flat(p if track_peak else torch.zeros_like(m)),
         w1=coeffs.w1, w2=coeffs.w2, w3=coeffs.w3, track_peak=track_peak,
+        envelope=os.environ.get("METERS_TORCH_BALLISTICS_ENV", "0") == "1",
     )
     z1, z2, m, p = (v.reshape(batch) for v in (z1, z2, m, p))
     return z1, z2, m, (p if track_peak else None)
@@ -178,7 +184,9 @@ def true_peak_update_fused(
     Tm = (T // truepeak_fused.BLOCK) * truepeak_fused.BLOCK
     if Tm:
         z1, z2, m, p, hf = truepeak_fused.truepeak_fused(xf[:, :Tm], hf, z1, z2, m, p, **w)
-    if Tm < T:  # the tail: plain oversampling, chained states
+    if Tm < T:  # the tail: plain oversampling, chained states, the serial
+        # body whatever METERS_TORCH_BALLISTICS_ENV says (the JAX package's
+        # tail is its serial _scan_ballistics)
         up, hf = resample.upsample4(xf[:, Tm:], hf)
         z1, z2, m, p = ballistics_core.ballistics(
             up.abs(), z1, z2, m, p, **w, track_peak=True

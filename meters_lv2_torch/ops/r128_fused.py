@@ -11,6 +11,14 @@ covers a 128-aligned block of every stream:
   * the carried per-channel K-weighting state and 47-sample resampler
     history.
 
+Seg mode (``off``, ``fragm``, ``n_slots`` given; pallas_r128.py:298-326):
+the first output is the per-fragment power sums seg [B, n_slots] of p placed
+at the per-stream sample offset ``off`` on a ``fragm`` grid,
+``segment.shifted_segments(p, off, fragm, n_slots, "sum")`` up to float32
+summation order, and the full-rate p is never written.  z, hist and tpmax
+are those of the full-rate mode.  The R128 meter keeps the full-rate path
+and ``shifted_segments``, as the JAX meter does.
+
 ``fused_core`` launches the hand-written CUDA kernel (csrc/r128_fused.cu)
 for CUDA tensors and uses the plain PyTorch version,
 ``fused_core_reference``, only for tensors on the CPU.  On a CUDA tensor it
@@ -24,7 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import lti, resample
+from . import lti, resample, segment
 from .lti import canonical_device, check_tensor
 
 BLOCK = 128  # kernel block (samples); T must be a multiple
@@ -33,8 +41,9 @@ _MAX_C = 5  # channels the kernel supports (R128: 1..5)
 
 # Kernel launches since import (or since a caller reset it): a run can
 # show that its main path went through the kernel.  Only the CUDA branch
-# of fused_core counts.
+# of fused_core counts, the full-rate mode's and seg mode's apart.
 launch_count = 0
+seg_launch_count = 0
 
 _GAINS_ON: dict[tuple, torch.Tensor] = {}
 
@@ -50,15 +59,52 @@ def _split_layout(x: torch.Tensor, C: int) -> tuple[int, int]:
     raise ValueError(f"x must be [B, C*T] or [B, C={C}, T], got {tuple(x.shape)}")
 
 
+def check_seg(x: torch.Tensor, C: int, off, fragm, n_slots) -> bool:
+    """Validate the seg-mode arguments against x (flat or 3-D, C channels);
+    True in seg mode, False when ``off`` is None (full rate).
+
+    As the JAX kernel's asserts (pallas_r128.py:346): fragm and n_slots
+    given, fragm > 128 (a 128-sample block then spans at most two
+    fragments); off an int32 [B] tensor on x's device.  Also n_slots >= 2
+    and n_slots * fragm >= T + fragm - 1, so every sample of the block lands
+    in a slot for any off in [0, fragm)."""
+    if off is None:
+        if fragm is not None or n_slots is not None:
+            raise ValueError("fragm and n_slots are seg-mode arguments: give off too")
+        return False
+    B, T = _split_layout(x, C)
+    if fragm is None or n_slots is None:
+        raise ValueError("seg mode needs fragm and n_slots with off")
+    fragm, n_slots = int(fragm), int(n_slots)
+    if fragm <= BLOCK:
+        raise ValueError(f"seg mode needs fragm > {BLOCK}, got {fragm}")
+    if n_slots < 2 or n_slots * fragm < T + fragm - 1:
+        raise ValueError(
+            f"n_slots={n_slots} cannot hold {T} samples at any offset on a {fragm} grid "
+            f"(need n_slots >= 2 and n_slots * fragm >= T + fragm - 1)")
+    if not isinstance(off, torch.Tensor) or off.dtype != torch.int32 or off.shape != (B,):
+        raise ValueError(
+            f"off must be an int32 tensor of shape ({B},), got "
+            f"{getattr(off, 'dtype', type(off))} {tuple(getattr(off, 'shape', ()))}")
+    if canonical_device(off.device) != canonical_device(x.device):
+        raise ValueError(f"off is on {off.device}, x on {x.device}")
+    return True
+
+
 def fused_core_reference(
     x: torch.Tensor,
     z0: torch.Tensor,
     hist: torch.Tensor,
     gains: tuple[float, ...],
     op: lti.LTIBlockOp,
+    *,
+    off: torch.Tensor | None = None,
+    fragm: int | None = None,
+    n_slots: int | None = None,
 ):
     """Plain PyTorch version: ``lti_scan`` + ``upsample4_absmax`` exactly
-    as the JAX meter's unfused path (models/ebur128.py xla_core) runs them.
+    as the JAX meter's unfused path (models/ebur128.py xla_core) runs them,
+    then in seg mode ``segment.shifted_segments`` of the power.
 
     Args:
       x:     [B, C*T] channel-major or [B, C, T], T % 128 == 0.
@@ -66,16 +112,22 @@ def fused_core_reference(
       hist:  [B, C, 47] true-peak resampler history.
       gains: per-channel power gains (R128_CHAN_GAIN, or 2.0 for mono).
       op:    ops.lti.LTIBlockOp of the K-weighting system at block 128.
+      off, fragm, n_slots: seg mode (see ``check_seg``): off [B] int32, the
+             samples already in each stream's open fragment.
 
-    Returns (p [B, T], z [B, C, 4], hist [B, C, 47], tpmax [B]).
+    Returns (p [B, T] or seg [B, n_slots], z [B, C, 4], hist [B, C, 47],
+    tpmax [B]).
     """
     C = z0.shape[1]
+    seg_mode = check_seg(x, C, off, fragm, n_slots)
     B, T = _split_layout(x, C)
     x3 = x.reshape(B, C, T)
     y, z = lti.lti_scan(op, x3, z0)
     g = _gains_on(tuple(gains), x.device)
     p = torch.sum(torch.square(y) * g[:, None], dim=-2)
     tpm, hist1 = resample.upsample4_absmax(x3, hist)
+    if seg_mode:
+        p = segment.shifted_segments(p, off, int(fragm), int(n_slots), "sum")
     return p, z, hist1, torch.amax(tpm, dim=-1)
 
 
@@ -86,8 +138,8 @@ def _gains_on(gains: tuple, device) -> torch.Tensor:
     return _GAINS_ON[key]
 
 
-def _fused_core_cuda(x, z0, hist, gains, op):
-    global launch_count
+def _fused_core_cuda(x, z0, hist, gains, op, off=None, fragm=None, n_slots=None):
+    global launch_count, seg_launch_count
     from ..runtime import build
 
     device = canonical_device(x.device)
@@ -104,10 +156,14 @@ def _fused_core_cuda(x, z0, hist, gains, op):
     check_tensor("x", x, x.shape, device)
     check_tensor("z0", z0, (B, C, 4), device)
     check_tensor("hist", hist, (B, C, _NH), device)
+    seg_mode = check_seg(x, C, off, fragm, n_slots)
+    if seg_mode and not off.is_contiguous():
+        raise ValueError("off must be contiguous")
 
     w = op.tensors(device)
     taps = resample.upsample4_taps_on(device)
-    p = torch.empty((B, T), dtype=torch.float32, device=device)
+    p = torch.empty((B, int(n_slots)) if seg_mode else (B, T), dtype=torch.float32,
+                    device=device)
     z = torch.empty((B, C, 4), dtype=torch.float32, device=device)
     h = torch.empty((B, C, _NH), dtype=torch.float32, device=device)
     tpm = torch.empty((B,), dtype=torch.float32, device=device)
@@ -121,11 +177,16 @@ def _fused_core_cuda(x, z0, hist, gains, op):
             w.kmat.data_ptr(), w.sy.data_ptr(), w.at.data_ptr(),
             w.g.data_ptr(), taps.data_ptr(), g_host,
             B, C, T,
+            off.data_ptr() if seg_mode else None,
+            int(fragm) if seg_mode else 0, int(n_slots) if seg_mode else 0,
             p.data_ptr(), z.data_ptr(), h.data_ptr(), tpm.data_ptr(),
             stream,
         )
     build.check(lib, rc, "r128_fused_launch")
-    launch_count += 1
+    if seg_mode:
+        seg_launch_count += 1
+    else:
+        launch_count += 1
     return p, z, h, tpm
 
 
@@ -135,17 +196,26 @@ def fused_core(
     hist: torch.Tensor,
     gains: tuple[float, ...],
     op: lti.LTIBlockOp,
+    *,
+    off: torch.Tensor | None = None,
+    fragm: int | None = None,
+    n_slots: int | None = None,
 ):
-    """Fused K-weighting combined power + true-peak max over one block.
+    """Fused K-weighting combined power + true-peak max over one block;
+    with ``off``, ``fragm`` and ``n_slots`` the per-fragment power sums
+    instead of the power (seg mode).
 
-    Arguments and returns as ``fused_core_reference``.  A CUDA tensor goes
-    to the CUDA kernel, which also needs contiguous float32 inputs; a CPU
+    Arguments and returns as ``fused_core_reference``; the seg-mode
+    arguments are checked before anything is built.  A CUDA tensor goes to
+    the CUDA kernel, which also needs contiguous float32 inputs; a CPU
     tensor goes to the plain version.
     """
     if x.device.type == "cuda":
-        return _fused_core_cuda(x, z0, hist, tuple(float(g) for g in gains), op)
+        return _fused_core_cuda(x, z0, hist, tuple(float(g) for g in gains), op,
+                                off, fragm, n_slots)
     if x.device.type == "cpu":
-        return fused_core_reference(x, z0, hist, gains, op)
+        return fused_core_reference(x, z0, hist, gains, op, off=off, fragm=fragm,
+                                    n_slots=n_slots)
     raise ValueError(f"no fused_core for device {x.device}")
 
 

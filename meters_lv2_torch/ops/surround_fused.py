@@ -26,9 +26,19 @@ for CUDA tensors and uses the plain PyTorch version, ``fused_core_reference``,
 only for tensors on the CPU.  On a CUDA tensor it launches the kernel or
 raises; it never falls back.  The two agree to a stated tolerance (float32
 sums in other orders); the block peak agrees bit for bit.
+
+``fused_core_wide`` computes the same function with the wide layout of the
+JAX package's ``_fused_core_wide`` (pallas_surround.py:252), one unit of
+parallel work per (stream, channel) row (csrc/surround_wide.cu), and the
+same plain version.  ``fused_core`` goes to it when the environment variable
+``METERS_TORCH_SURROUND_WIDE`` is ``1``, read on each call (the JAX
+package's METERS_TPU_SURROUND_WIDE); the default ``0`` keeps the narrow
+layout.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -41,9 +51,10 @@ BLOCK = 128  # kernel block (samples); T must be a multiple
 PAIRS_OF = {c: (4 if c > 3 else 3) for c in range(3, 9)}
 
 # Kernel launches since import (or since a caller reset it): a run can
-# show that its main path went through the kernel.  Only the CUDA branch
-# of fused_core counts.
+# show that its main path went through the kernel.  Only the CUDA branches
+# count, the narrow layout's and the wide layout's apart.
 launch_count = 0
+wide_launch_count = 0
 
 
 def lowpass_eps(w1: float) -> float:
@@ -101,8 +112,8 @@ def fused_core_reference(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv):
     return kmz, zl, pk, pacc
 
 
-def _fused_core_cuda(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv):
-    global launch_count
+def _fused_core_cuda(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv, wide=False):
+    global launch_count, wide_launch_count
     from ..runtime import build
 
     device = canonical_device(x.device)
@@ -138,16 +149,31 @@ def _fused_core_cuda(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv):
     lib = build.kernels()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.surround_fused_launch(
+        name = "surround_wide_launch" if wide else "surround_fused_launch"
+        rc = getattr(lib, name)(
             x.data_ptr(), km_z.data_ptr(), zl.data_ptr(), sel_a.data_ptr(),
             sel_b.data_ptr(), wv.data_ptr(), km_w.at.data_ptr(), km_w.g.data_ptr(),
             lp_w.at.data_ptr(), lp_w.sy.data_ptr(),
             float(np.float32(w1)), float(np.float32(1.0 - w1)), lowpass_eps(w1),
             B, C, T, kmz.data_ptr(), zlo.data_ptr(), pk.data_ptr(), pacc.data_ptr(), stream,
         )
-    build.check(lib, rc, "surround_fused_launch")
-    launch_count += 1
+    build.check(lib, rc, name)
+    if wide:
+        wide_launch_count += 1
+    else:
+        launch_count += 1
     return kmz, zlo, pk, pacc
+
+
+def fused_core_wide(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv):
+    """``fused_core`` in the wide layout: the same arguments, returns and
+    contract; a CUDA tensor goes to csrc/surround_wide.cu, a CPU tensor to
+    the same plain version."""
+    if x.device.type == "cuda":
+        return _fused_core_cuda(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv, wide=True)
+    if x.device.type == "cpu":
+        return fused_core_reference(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv)
+    raise ValueError(f"no fused_core_wide for device {x.device}")
 
 
 def fused_core(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv):
@@ -158,8 +184,11 @@ def fused_core(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv):
     to the CUDA kernel, which also needs contiguous float32 inputs on one
     card, C in 3..8 and P = 4 pairs (3 when C == 3); the routing and the
     weights are read there, never synchronised to the host.  A CPU tensor
-    goes to the plain version.
+    goes to the plain version.  ``METERS_TORCH_SURROUND_WIDE=1`` sends the
+    call to ``fused_core_wide``.
     """
+    if os.environ.get("METERS_TORCH_SURROUND_WIDE", "0") == "1":
+        return fused_core_wide(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv)
     if x.device.type == "cuda":
         return _fused_core_cuda(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv)
     if x.device.type == "cpu":

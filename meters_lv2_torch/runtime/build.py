@@ -124,7 +124,8 @@ def kernels() -> ctypes.CDLL:
             [vp] * 8  # x, z0, hist, kmat, sy, at, g, taps (device)
             + [ctypes.POINTER(ctypes.c_float)]  # gains (host)
             + [ci] * 3  # B, C, T
-            + [vp] * 4  # p, z, hist_out, tpmax (device)
+            + [vp, ci, ci]  # off (device, or None: full rate), fragm, n_slots
+            + [vp] * 4  # p or seg, z, hist_out, tpmax (device)
             + [vp]  # cudaStream_t
         )
         cf = ctypes.c_float
@@ -134,7 +135,8 @@ def kernels() -> ctypes.CDLL:
             [vp] * 5  # t, z1, z2, m, p (device)
             + [ci] * 2  # N, T
             + [cf] * 3  # w1, w2, w3
-            + [ci]  # track_peak
+            + [ci] * 2  # track_peak, envelope
+            + [ctypes.POINTER(ctypes.c_float)]  # envelope decrements c_k (host)
             + [vp] * 4  # z1, z2, m, p out (device)
             + [vp]  # cudaStream_t
         )
@@ -173,6 +175,9 @@ def kernels() -> ctypes.CDLL:
             + [vp] * 4  # kmz, zl, pk, pacc (device)
             + [vp]  # cudaStream_t
         )
+        f = lib.surround_wide_launch
+        f.restype = ci
+        f.argtypes = lib.surround_fused_launch.argtypes
         f = lib.stft_fused_launch
         f.restype = ci
         f.argtypes = (

@@ -37,6 +37,8 @@ mask flipping only where a power lies within 1e-3 relative of the
 threshold, NaN in one channel marked alike; a stream with an Inf sample is
 compared on its other channel only (which bins turn Inf or NaN depends on
 the FFT).  The analyzers on the card against the CPU: the same bars.
+The variants (the ballistics envelope body, R128 seg mode, the surround
+wide layout) have their bars stated above their tests.
 """
 
 import math
@@ -592,3 +594,131 @@ def test_analyzer_on_card_matches_cpu(cuda, name, fs):
     else:
         big = lc > 1e-6 * pk
         assert bool(((og["lr"].cpu() - oc["lr"]).abs()[big] <= STFT_POS_TOL).all())
+
+
+# -- the variants: the ballistics envelope body, R128 seg mode, the surround
+# wide layout.  envelope: bit-exact to its plain version, within 2e-6 / 1e-7
+# of the serial kernel (p exact); seg mode: seg within 2e-6 (atol 1e-9) of
+# its plain version, z / hist / tpmax bit-identical to the same kernel's
+# full-rate mode; wide: the narrow kernel's bars against the plain version
+# and against the narrow kernel, km_z, zl and pk bit-identical to it.
+
+
+def _env_rows(N, T, seed, nonfinite):
+    rng = np.random.default_rng(seed)
+    t = np.abs(0.3 * rng.standard_normal((N, T))).astype(np.float32)
+    st = [np.abs(0.3 * rng.standard_normal(N)).astype(np.float32) for _ in range(4)]
+    if nonfinite:  # NaN, +Inf, a NaN and a +Inf in one group (both orders)
+        t[0, 17], t[1, 301], t[2, 5] = np.nan, np.inf, np.nan
+        t[3, 40], t[3, 41], t[4, 40], t[4, 42] = np.nan, np.inf, np.inf, np.nan
+        t[5, 0:64] = 0.0
+        st[2][3] = np.nan
+    return t, st
+
+
+@pytest.mark.parametrize("N,T,track_peak,nonfinite", [
+    (5, 1024, False, False),
+    (37, 1000, True, True),
+    (40, 4096, True, False),
+])
+def test_ballistics_envelope_kernel_matches_plain(cuda, N, T, track_peak, nonfinite):
+    t, st = _env_rows(N, T, N + T, nonfinite)
+    c = design.iec2_ppm(48000)
+    args = [torch.as_tensor(a, device=cuda) for a in [t] + st]
+    w = dict(w1=c.w1, w2=c.w2, w3=c.w3, track_peak=track_peak)
+    n0, e0 = ballistics_core.launch_count, ballistics_core.envelope_launch_count
+    got = ballistics_core.ballistics(*args, **w, envelope=True)
+    ref = ballistics_core.ballistics_envelope_reference(*args, **w)
+    serial = ballistics_core.ballistics(*args, **w)
+    torch.cuda.synchronize()
+    assert ballistics_core.envelope_launch_count == e0 + 1
+    assert ballistics_core.launch_count == n0 + 1
+    assert all(_same(a, b) for a, b in zip(got, ref))
+    for k, (a, b) in enumerate(zip(got, serial)):
+        a, b = a.cpu().double(), b.cpu().double()
+        f = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), f) and torch.equal(a[~f].nan_to_num(), b[~f].nan_to_num())
+        bar = 0.0 if k == 3 else 2e-6 * b[f].abs() + 1e-7
+        assert bool(((a - b)[f].abs() <= bar).all()), k
+
+
+@pytest.mark.parametrize("fs,C,T,B", [(48000, 2, 2560, 5), (44100, 5, 2304, 3),
+                                      (48000, 1, 48000, 4)])
+def test_r128_seg_mode_kernel_matches_plain(cuda, fs, C, T, B):
+    fragm = fs // 20
+    n_slots = T // fragm + 2
+    rng = np.random.default_rng(fs + C)
+    x = (0.3 * rng.standard_normal((B, C, T))).astype(np.float32)
+    z0 = (0.01 * rng.standard_normal((B, C, 4))).astype(np.float32)
+    h0 = (0.1 * rng.standard_normal((B, C, 47))).astype(np.float32)
+    off = torch.as_tensor(rng.integers(0, fragm, B).astype(np.int32), device=cuda)
+    gains = (2.0,) if C == 1 else r128_fused.gains_f32(design.R128_CHAN_GAIN[:C])
+    op = lti.LTISystem(*design.k_weighting_state_space(fs)).op(128)
+    xd, zd, hd = (torch.as_tensor(a, device=cuda) for a in (x, z0, h0))
+    seg_kw = dict(off=off, fragm=fragm, n_slots=n_slots)
+    s0, n0 = r128_fused.seg_launch_count, r128_fused.launch_count
+    got = r128_fused.fused_core(xd, zd, hd, gains, op, **seg_kw)
+    full = r128_fused.fused_core(xd, zd, hd, gains, op)
+    ref = r128_fused.fused_core_reference(xd, zd, hd, gains, op, **seg_kw)
+    torch.cuda.synchronize()
+    assert (r128_fused.seg_launch_count, r128_fused.launch_count) == (s0 + 1, n0 + 1)
+    assert got[0].shape == (B, n_slots)
+    for a, b in zip(got[1:], full[1:]):
+        assert torch.equal(a, b)
+    _assert_core_close(full, r128_fused.fused_core_reference(xd, zd, hd, gains, op))
+    seg, segr = got[0].cpu().double(), ref[0].cpu().double()
+    assert bool(((seg - segr).abs() <= 2e-6 * segr.abs() + 1e-9).all())
+
+
+@pytest.mark.parametrize("C,B,T,pairs,nonfinite", [
+    (5, 5, 1280, [[0, 0], [1, 1], [0, 1], [2, 3]], False),
+    (3, 4, 48000, None, False),
+    (5, 256, 48000, None, False),
+    (8, 256, 48000, None, False),
+    (8, 5, 1280, None, True),
+])
+def test_surround_wide_kernel_matches_plain_and_narrow(cuda, C, B, T, pairs, nonfinite):
+    args = _surround_args(C, B, T, C + B, cuda, pairs, nonfinite)
+    n0, w0 = surround_fused.launch_count, surround_fused.wide_launch_count
+    got = surround_fused.fused_core_wide(*args)
+    narrow = surround_fused.fused_core(*args)
+    ref = surround_fused.fused_core_reference(*args)
+    torch.cuda.synchronize()
+    assert (surround_fused.wide_launch_count, surround_fused.launch_count) == (w0 + 1, n0 + 1)
+    _assert_surround_close(got, ref)
+    _assert_surround_close(got, narrow)
+    for a, b in zip(got[:3], narrow[:3]):  # km_z, zl, pk: the same operations
+        assert _same(a, b)
+
+
+def test_variant_switches_reach_the_meters_on_card(cuda, monkeypatch):
+    """METERS_TORCH_BALLISTICS_ENV=1 sends BBCstereo's and BBCM6's ballistics
+    to the envelope kernel, METERS_TORCH_SURROUND_WIDE=1 surround5's bulk to
+    the wide kernel; readouts within the variants' bars of the default."""
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor((0.2 * rng.standard_normal((3, 2, 4800))).astype(np.float32), device=cuda)
+    xs = torch.as_tensor((0.2 * rng.standard_normal((3, 5, 4800))).astype(np.float32), device=cuda)
+    for name, var, count, data in [
+        ("BBCstereo", "METERS_TORCH_BALLISTICS_ENV", "envelope_launch_count", x),
+        ("BBCM6", "METERS_TORCH_BALLISTICS_ENV", "envelope_launch_count", x),
+        ("surround5", "METERS_TORCH_SURROUND_WIDE", "wide_launch_count", xs),
+    ]:
+        mod = surround_fused if name.startswith("surround") else ballistics_core
+        m = meters_lv2_torch.create(name, 48000)
+        outs = []
+        for flag in ("0", "1"):
+            monkeypatch.setenv(var, flag)
+            c0 = getattr(mod, count)
+            st = m.init((3, 2) if name == "BBCstereo" else (3,), device=cuda)
+            for i in range(4):
+                st = m.update(st, data[..., i * 1200:(i + 1) * 1200])
+            out = m.read(st)[0]
+            torch.cuda.synchronize()
+            assert getattr(mod, count) == c0 + (4 if flag == "1" else 0), name
+            outs.append(out if isinstance(out, dict) else {"value": out})
+        for k in outs[0]:
+            a, b = outs[1][k].cpu().double(), outs[0][k].cpu().double()
+            if k == "correlation":
+                assert (a - b).abs().max().item() < 1e-5, (name, k)
+            else:
+                assert bool(((a - b).abs() <= 2e-6 * b.abs() + 1e-7).all()), (name, k)

@@ -35,6 +35,18 @@ def test_import_pulls_in_no_jax():
         "for name in ('dr14stereo', 'SigDistHist', 'bitmeter', 'spectr30stereo', 'surround5',\n"
         "             'phasewheel', 'stereoscope', 'goniometer'):\n"
         "    m.create(name, 48000).init((2,), device='cpu')\n"
+        "from meters_lv2_torch.ops.surround_fused import fused_core_wide, wide_launch_count\n"
+        "from meters_lv2_torch.ops.ballistics_core import ballistics_envelope_reference\n"
+        "from meters_lv2_torch.ops import r128_fused\n"
+        "import torch\n"
+        "x, z, h = torch.zeros(2, 2, 256), torch.zeros(2, 2, 4), torch.zeros(2, 2, 47)\n"
+        "try:\n"
+        "    r128_fused._fused_core_cuda(x, z, h, (1.0, 1.0), meter.sys.op(128),\n"
+        "                                torch.zeros(2, dtype=torch.int32), 100, 4)\n"
+        "except ValueError as e:\n"
+        "    assert 'fragm > 128' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('seg mode took fragm=100')\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
