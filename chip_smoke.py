@@ -12,9 +12,13 @@ Phases, each printed on its own line; any failure exits non-zero:
   3. kernels  each kernel (r128_fused, ballistics, truepeak_fused,
               bitmeter_stats, spectrum_fused, surround_fused, stft_fused)
               against its plain PyTorch version on the same card tensors
-              (stft_fused in all three modes at [256, 2, 56192] and at
-              W=256 hop 1764, raw mode also against torch.fft.rfft, and
-              with a NaN and a +Inf sample); then the three variants: the
+              (truepeak_fused's default envelope body against its own and
+              the serial body's plain version, its serial body against
+              its own, at N=512 T=48000 and on rows with NaN and +-Inf at
+              block edges, in the history and side by side; stft_fused
+              in all three modes at [256, 2, 56192] and at W=256 hop
+              1764, raw mode also against torch.fft.rfft, and with a NaN
+              and a +Inf sample); then the three variants: the
               ballistics envelope body against its plain version and the
               serial kernel (N=512 T=48000 with and without track_peak,
               and adversarial rows), r128_fused's seg mode at [256, 2,
@@ -52,6 +56,11 @@ Phases, each printed on its own line; any failure exits non-zero:
               offsets) against the full-rate kernel + shifted_segments, and
               surround5 and surround8 with METERS_TORCH_SURROUND_WIDE=1
               against the narrow run, each variant's launches counted;
+              then 60 x 1 s carried through both truepeak_fused bodies at
+              N=512 (the largest relative difference of z1, z2 and m), and
+              K20stereo, COR, goniometer, phasewheel and surround5 under a
+              caller's torch.set_float32_matmul_precision("high") against
+              the "highest" run, bit for bit;
   5. golden   committed C-reference fixtures streamed on the card: two
               R128 ones, every fixture of the ballistics families, the 14
               statistics fixtures (DR-14, TP+RMS, sigdist, bit meter) and
@@ -60,7 +69,9 @@ Phases, each printed on its own line; any failure exits non-zero:
               phase wheel, stereoscope, goniometer); then the DIN, BBC and
               BBC M-6 fixtures through the envelope body and the surround
               fixtures through the wide layout;
-  6. times    each kernel vs its plain version, the ballistics kernel alone
+  6. times    each kernel vs its plain version, truepeak_fused's envelope
+              and serial bodies alternated at N=512 and N=8,192, the
+              ballistics kernel alone
               at 4,224 to 33,792 rows, and main-path x-realtime (R128 over
               120 blocks, down from 240 to keep the whole run well inside
               its time limit; dBTP, BBC, BBC M-6, the statistics meters and
@@ -122,6 +133,10 @@ TP_RTOL = 1e-6
 # tap order, the plain version's block matmul in cuBLAS's order, so each
 # oversample differs by a few ulp of its terms; the chain is contractive
 # and m, p are maxima of z1 + z2 and |up|, so they inherit a few ulp.
+# Against the plain version of its own body that FIR order is the only
+# difference (each body's chain does the plain version's operations);
+# against the other body's, the envelope's own 2e-6 bar
+# (tests/test_torch_variants.py) adds to it, within the same 1e-5.
 TPK_RTOL = 1e-5
 COR_TOL = 1e-4  # card vs CPU correlation readout, absolute
 # statistics meters, card vs CPU: histograms, counters, window counts,
@@ -1009,6 +1024,18 @@ def device_us_per_update(m, st, xs, n=10):
     return total / n, kern / n
 
 
+def stats_profile(m, st, xs, enqueue, n, profiled):
+    """The host's enqueue ms per update of the timed runs and, when
+    ``profiled``, torch.profiler's device time per update and the
+    hand-written kernels' share of it: the text for a phase times line."""
+    text = f"host enqueue {[round(e / n * 1e3, 3) for e in enqueue]} ms per update"
+    if profiled:
+        dev_us, kern_us = device_us_per_update(m, st, xs)
+        text += (f"; torch.profiler: device time {dev_us:.1f} us per update, hand-written "
+                 f"kernels {kern_us:.1f} us ({100 * kern_us / dev_us:.1f} %)")
+    return text
+
+
 def surround_times(dev, blocks3, gpu):
     """surround_fused against its plain version at B=256 T=48000 for C=5
     and C=8 (plain, kernel, kernel, plain; one call at a time, as the other
@@ -1656,6 +1683,125 @@ def variants_golden(dev):
           f"0 narrow): {'; '.join(gw)}")
 
 
+N_CARRIED = 60  # 1 s blocks carried through both truepeak_fused bodies
+
+
+def truepeak_carried(dev, blocks_dev, w_tp):
+    """N_CARRIED x 1 s of the main-path blocks at N=512 rows through both
+    truepeak_fused kernels, z1, z2 and the history carried and m, p
+    restarted each call (as the meter runs it): the largest relative
+    difference between the bodies of z1 and z2 after every call and of
+    each call's m must stay within TPK_RTOL, with the same non-finite
+    values and hist' bit-identical.  The envelope's rounding must not
+    drift away from the serial chain's over a minute."""
+    import torch
+
+    from meters_lv2_torch.ops import truepeak_fused
+
+    N = 2 * B_MAIN
+    zero = torch.zeros(N, device=dev)
+    carry = {b: (zero, zero, torch.zeros((N, 47), device=dev)) for b in truepeak_fused.BODIES}
+    worst = {"z1": 0.0, "z2": 0.0, "m": 0.0}
+    for i in range(N_CARRIED):
+        x = blocks_dev[i % len(blocks_dev)].reshape(N, FS)
+        out = {}
+        for b in truepeak_fused.BODIES:
+            z1, z2, h = carry[b]
+            out[b] = truepeak_fused.truepeak_fused(x, h, z1, z2, zero, zero, **w_tp, body=b)
+            carry[b] = (out[b][0], out[b][1], out[b][4])
+        env, ser = out["envelope"], out["serial"]
+        if not same_bits(env[4], ser[4]):
+            fail(f"truepeak_fused carried, call {i}: hist' differs between the bodies")
+        for name, a, b in zip(worst, env, ser):
+            if not same_nonfinite(a, b):
+                fail(f"truepeak_fused carried, call {i}: {name} non-finite values differ")
+            f = torch.isfinite(b)
+            d = (a - b).abs()[f]
+            if d.numel():
+                worst[name] = max(worst[name], (d / b.abs()[f].clamp_min(1e-30)).max().item())
+    torch.cuda.synchronize()
+    if not all(v <= TPK_RTOL for v in worst.values()):
+        fail(f"truepeak_fused carried {N_CARRIED} s: envelope vs serial relative {worst}, "
+             f"bar {TPK_RTOL}")
+    print(f"phase main: ok: truepeak_fused {N_CARRIED} x 1 s carried through both bodies at "
+          f"N={N} T={FS}: largest relative difference envelope vs serial " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items()) + f" (bar {TPK_RTOL}); hist' identical")
+
+
+def fp32_pinned(dev, blocks3):
+    """A caller's torch.set_float32_matmul_precision("high") reaches none of
+    the port's products: K20stereo (LTI), COR, goniometer, phasewheel and
+    surround5 over two 1 s blocks of 16 streams on the card equal the run at
+    "highest" bit for bit, and the caller's setting comes back."""
+    import torch
+
+    import meters_lv2_torch
+
+    xs = [torch.as_tensor(b[:16], device=dev) for b in blocks3[:2]]
+
+    def run(name, kw, batch, call):
+        m = meters_lv2_torch.create(name, FS, **kw)
+        st = m.init(batch, device=dev)
+        data = surround_blocks(m.nchan, xs) if name == "surround5" else xs
+        out = None
+        for xb in data:
+            if call == "update":
+                st = m.update(st, xb)
+            else:
+                out, st = m.process(st, xb)
+        if call == "update":
+            out = m.read(st)[0]
+        out = readouts(out)
+        torch.cuda.synchronize()
+        return out
+
+    meters = [("K20stereo", {}, (16, 2), "update"), ("COR", {}, (16,), "update"),
+              ("goniometer", {"oversample": 4}, (16,), "process"),
+              ("phasewheel", {}, (16,), "process"), ("surround5", {}, (16,), "update")]
+    old = torch.get_float32_matmul_precision()
+    try:
+        want = [run(*m) for m in meters]
+        torch.set_float32_matmul_precision("high")
+        got = [run(*m) for m in meters]
+        restored = torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(old)
+    bad = [f"{m[0]} {k}" for m, g, w in zip(meters, got, want) for k in w
+           if not same_bits(g[k], w[k])]
+    if bad or not restored:
+        fail(f"fp32 pinning: under 'high' not bit-identical to 'highest': {bad}; the caller's "
+             f"setting restored {restored}")
+    print("phase main: ok: under torch.set_float32_matmul_precision('high') "
+          + ", ".join(m[0] for m in meters) + " (2 x 1 s, 16 streams) equal the 'highest' run "
+          "bit for bit; the caller's setting restored")
+
+
+def truepeak_body_times(dev, gpu, w_tp, x_main):
+    """truepeak_fused's two bodies at T=48000 on x_main (the main path's
+    N=512 rows) and on 8,192 rows of 0.1 N(0, 1) samples, timed serial,
+    envelope, envelope, serial; returns {N: (envelope ms, serial ms)}."""
+    import torch
+
+    from meters_lv2_torch.ops import truepeak_fused
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    res = {}
+    for N in (x_main.shape[0], 8192):
+        x = x_main if N == x_main.shape[0] else torch.randn((N, FS), generator=gen, device=dev) * 0.1
+        h = torch.zeros((N, 47), device=dev)
+        zs = [torch.zeros(N, device=dev) for _ in range(4)]
+        ms = {b: [] for b in truepeak_fused.BODIES}
+        for body in ("serial", "envelope", "envelope", "serial"):
+            ms[body].append(cuda_ms(lambda: truepeak_fused.truepeak_fused(
+                x, h, *zs, **w_tp, body=body), 10))
+        res[N] = (statistics.mean(ms["envelope"]), statistics.mean(ms["serial"]))
+        print(f"phase times: truepeak_fused at N={N} T={FS}: envelope {res[N][0]:.4f} ms "
+              f"(medians {ms['envelope']}), serial {res[N][1]:.4f} ms (medians {ms['serial']}), "
+              f"alternated [{gpu}]")
+        del x
+    return res
+
+
 def x_realtime(m, init, xs, n):
     """(x-realtime, per-update ms, run seconds) of n updates of meter m at
     B_MAIN streams over the blocks xs, best of two runs after a warm update;
@@ -1919,24 +2065,34 @@ def main():
         err, errs = compare_ballistics(got, ref, tag)
         failures += [f"ballistics {tag}: {e}" for e in errs]
         ball_err = err
+    # truepeak_fused: the default (envelope) body against its own plain
+    # version and against the serial plain version, the serial body against
+    # its plain version; all at TPK_RTOL, hist' bit-exact
     for tag, N, T, inject in [
         ("N=3 T=1280", 3, 1280, False),
-        ("NaN/+-Inf in x and hist N=6 T=1024", 6, 1024, True),
+        ("NaN/+-Inf in x and hist N=8 T=1024", 8, 1024, True),
         (f"main-path shape N={2 * B_MAIN} T={FS}", 2 * B_MAIN, FS, False),
     ]:
         x = (0.3 * rng.standard_normal((N, T))).astype(np.float32)
         h = (0.1 * rng.standard_normal((N, 47))).astype(np.float32)
         st = [0.5 * v for v in states(N)]
-        if inject:
+        if inject:  # block edges, the history, and +Inf beside -Inf (NaN and
+            # Inf oversamples in one group)
             x[0, 300], x[1, 700], x[2, 130] = np.nan, np.inf, -np.inf
+            x[6, 256], x[6, 383], x[7, 600], x[7, 601] = np.nan, np.inf, np.inf, -np.inf
             h[3, 10], h[4, 46], h[5, 0] = np.nan, np.inf, -np.inf
         args = on_card(x, h, *st)
         got = truepeak_fused.truepeak_fused(*args, **w_tp)
-        ref, plain_ms["truepeak_fused"] = timed_call(
-            lambda: truepeak_fused.truepeak_fused_reference(*args, **w_tp))
-        err, errs = compare_truepeak(got, ref, tag)
-        failures += [f"truepeak_fused {tag}: {e}" for e in errs]
-        tp_err = err
+        got_s = truepeak_fused.truepeak_fused(*args, **w_tp, body="serial")
+        ref, ms = timed_call(lambda: truepeak_fused.truepeak_fused_reference(*args, **w_tp))
+        ref_s = truepeak_fused.truepeak_fused_reference(*args, **w_tp, body="serial")
+        for t, g, r in ((f"{tag}, envelope vs its plain version", got, ref),
+                        (f"{tag}, envelope vs the serial plain version", got, ref_s),
+                        (f"{tag}, serial body vs its plain version", got_s, ref_s)):
+            err, errs = compare_truepeak(g, r, t)
+            failures += [f"truepeak_fused {t}: {e}" for e in errs]
+            if g is got and r is ref:
+                tp_err, plain_ms["truepeak_fused"] = err, ms
     from signals import make_signal
 
     w = make_signal("weird_floats", 1.0)
@@ -2021,7 +2177,7 @@ def main():
     def reset_counts():
         r128_fused.launch_count = r128_fused.seg_launch_count = 0
         ballistics_core.launch_count = ballistics_core.envelope_launch_count = 0
-        truepeak_fused.launch_count = 0
+        truepeak_fused.launch_count = truepeak_fused.serial_launch_count = 0
         bitmeter_stats.launch_count = 0
         spectrum_fused.launch_count = 0
         surround_fused.launch_count = surround_fused.wide_launch_count = 0
@@ -2032,7 +2188,8 @@ def main():
                 truepeak_fused.launch_count, bitmeter_stats.launch_count,
                 spectrum_fused.launch_count, surround_fused.launch_count,
                 stft_fused.launch_count, ballistics_core.envelope_launch_count,
-                r128_fused.seg_launch_count, surround_fused.wide_launch_count)
+                r128_fused.seg_launch_count, surround_fused.wide_launch_count,
+                truepeak_fused.serial_launch_count)
 
     def counts():
         return ballistics_core.launch_count, truepeak_fused.launch_count
@@ -2059,8 +2216,9 @@ def main():
         torch.cuda.synchronize()
         got = counts()
         want = tuple(n * len(blocks) for n in per_update)
-        if got != want or r128_fused.launch_count:
-            fail(f"main path {name}: (ballistics, truepeak) launches {got}, expected {want}")
+        if got != want or r128_fused.launch_count or truepeak_fused.serial_launch_count:
+            fail(f"main path {name}: (ballistics, truepeak) launches {got}, expected {want}; "
+                 f"serial truepeak {truepeak_fused.serial_launch_count}")
         ball_launches += got[0]
         tp_launches += got[1]
         out = readouts(out)
@@ -2098,7 +2256,7 @@ def main():
     got = counts()
     for i in range(FS // 1000):
         st_c = m.update(st_c, torch.as_tensor(x4[..., i * 1000:(i + 1) * 1000]))
-    if got != (FS // 1000, FS // 1000):
+    if got != (FS // 1000, FS // 1000) or truepeak_fused.serial_launch_count:
         fail(f"dBTP 1000-sample blocks: (ballistics, truepeak) launches {got}")
     ball_launches += got[0]
     tp_launches += got[1]
@@ -2128,11 +2286,12 @@ def main():
         out, st = m.read(st)
         torch.cuda.synchronize()
         got = (ballistics_core.launch_count, truepeak_fused.launch_count,
-               bitmeter_stats.launch_count, r128_fused.launch_count)
-        want = (0, N_STATS if layout == "stereo" else 0, N_STATS if name == "bitmeter" else 0, 0)
+               bitmeter_stats.launch_count, r128_fused.launch_count,
+               truepeak_fused.serial_launch_count)
+        want = (0, N_STATS if layout == "stereo" else 0, N_STATS if name == "bitmeter" else 0, 0, 0)
         if got != want:
-            fail(f"main path {name}: (ballistics, truepeak, bitmeter, r128) launches {got}, "
-                 f"expected {want}")
+            fail(f"main path {name}: (ballistics, truepeak, bitmeter, r128, serial truepeak) "
+                 f"launches {got}, expected {want}")
         tp_launches += got[1]
         bit_launches += got[2]
         for k, v in out.items():
@@ -2150,7 +2309,7 @@ def main():
                           if v[0].numel() == 1 or v.ndim == 2 and v.shape[1] <= 2)
         print(f"phase main: ok: {tag} {N_STATS} x 1 s blocks at B={B_MAIN}, state on "
               f"{state_tensors(st)[0].device}, (ballistics, "
-              f"truepeak, bitmeter, r128) launches {got}; {first}; streams 0-3 after "
+              f"truepeak, bitmeter, r128, serial truepeak) launches {got}; {first}; streams 0-3 after "
               f"{len(blocks)} blocks vs CPU: exact where exact, worst readout {worst:.3g} dB")
 
     # NaN / +-Inf samples: the card must bin and count them as the CPU does
@@ -2182,6 +2341,9 @@ def main():
     env_launches, seg_launches, wide_launches = variants_main(
         dev, blocks_dev, reset_counts, all_counts)
     marks.append(("main variants", time.perf_counter()))
+    truepeak_carried(dev, blocks_dev, w_tp)
+    fp32_pinned(dev, blocks3)
+    marks.append(("main truepeak carried and fp32", time.perf_counter()))
 
     # -- 5. golden fixtures -------------------------------------------------
     gw = []
@@ -2271,20 +2433,16 @@ def main():
     # versions' one call was timed in phase kernels
     t_abs = torch.abs(blocks_dev[0]).reshape(2 * B_MAIN, FS)
     x_tp = blocks_dev[0].reshape(2 * B_MAIN, FS)
-    h0 = torch.zeros((2 * B_MAIN, 47), device=dev)
     zs = on_card(*[0.5 * v for v in states(2 * B_MAIN)])
     times = {}
-    for name, kern in [
-        ("ballistics",
-         lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False)),
-        ("truepeak_fused",
-         lambda: truepeak_fused.truepeak_fused(x_tp, h0, *zs, **w_tp)),
-    ]:
-        k1 = cuda_ms(kern, 10)
-        k2 = cuda_ms(kern, 10)
-        times[name] = (statistics.mean([k1, k2]), plain_ms[name])
-        print(f"phase times: {name} kernel {times[name][0]:.4f} ms (medians {[k1, k2]}), "
-              f"plain version {plain_ms[name]:.1f} ms (one call, in phase kernels) at "
+    k1 = cuda_ms(lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False), 10)
+    k2 = cuda_ms(lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False), 10)
+    times["ballistics"] = (statistics.mean([k1, k2]), plain_ms["ballistics"])
+    tp_body_ms = truepeak_body_times(dev, gpu, w_tp, x_tp)
+    times["truepeak_fused"] = (tp_body_ms[2 * B_MAIN][0], plain_ms["truepeak_fused"])
+    for name in ("ballistics", "truepeak_fused"):
+        print(f"phase times: {name} kernel {times[name][0]:.4f} ms, plain version "
+              f"{plain_ms[name]:.1f} ms (one call, in phase kernels) at "
               f"N={2 * B_MAIN} T={FS} [{gpu}]")
     # bitmeter_stats at the main-path shape: plain, kernel, kernel, plain
     x_bit = torch.as_tensor(np.random.default_rng(0).standard_normal(
@@ -2315,7 +2473,7 @@ def main():
     for name, batch in [("dBTPstereo", (B_MAIN, 2)), ("BBCstereo", (B_MAIN, 2)),
                         ("BBCM6", (B_MAIN,))]:
         m = meters_lv2_torch.create(name, FS)
-        runs = []
+        runs, enqueue = [], []
         for _ in range(2):
             st = m.update(m.init(batch, device=dev), blocks_dev[0])  # warm
             st = m.init(batch, device=dev)
@@ -2323,23 +2481,28 @@ def main():
             t0 = time.perf_counter()
             for i in range(n_chunks):
                 st = m.update(st, blocks_dev[i % len(blocks_dev)])
+            enqueue.append(time.perf_counter() - t0)
             out, _ = m.read(st)
             torch.cuda.synchronize()
             [v.cpu() for v in readouts(out).values()]
             runs.append(time.perf_counter() - t0)
         print(f"phase times: {name} {B_MAIN * n_chunks / min(runs):.1f} x-realtime (best of "
               f"{len(runs)}: {[round(r, 4) for r in runs]} s for {n_chunks} x 1 s blocks at "
-              f"B={B_MAIN}, {min(runs) / n_chunks * 1e3:.3f} ms per update) [{gpu}]")
+              f"B={B_MAIN}, {min(runs) / n_chunks * 1e3:.3f} ms per update); "
+              + stats_profile(m, st, blocks_dev, enqueue, n_chunks, name == "dBTPstereo")
+              + f" [{gpu}]")
     for name, kw, layout in STATS:
         m = meters_lv2_torch.create(name, FS, **kw)
-        runs = []
+        xs = [stats_input(b, layout) for b in blocks_dev]
+        runs, enqueue = [], []
         for _ in range(2):
-            st = m.update(m.init((B_MAIN,)), stats_input(blocks_dev[0], layout))  # warm
+            st = m.update(m.init((B_MAIN,)), xs[0])  # warm
             st = m.init((B_MAIN,))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(N_STATS):
-                st = m.update(st, stats_input(blocks_dev[i % len(blocks_dev)], layout))
+                st = m.update(st, xs[i % len(xs)])
+            enqueue.append(time.perf_counter() - t0)
             out, _ = m.read(st)
             torch.cuda.synchronize()
             [v.cpu() for v in out.values()]
@@ -2347,7 +2510,8 @@ def main():
         tag = name + ("(reference_oor_count)" if kw else "")
         print(f"phase times: {tag} {B_MAIN * N_STATS / min(runs):.1f} x-realtime (best of "
               f"{len(runs)}: {[round(r, 4) for r in runs]} s for {N_STATS} x 1 s blocks at "
-              f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update) [{gpu}]")
+              f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update); "
+              + stats_profile(m, st, xs, enqueue, N_STATS, layout == "stereo") + f" [{gpu}]")
 
     times["spectrum_fused"] = spectrum_times(dev, blocks_dev, gpu)
     marks.append(("times before surround", time.perf_counter()))
@@ -2452,11 +2616,14 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_truepeak.py:161",
         "launches": tp_launches,
         "max_abs_err": tp_err,  # z1, z2, m, p at the main-path shape
-        "ms": times["truepeak_fused"][0],
-        "plain_ms": times["truepeak_fused"][1],
+        "ms": times["truepeak_fused"][0],  # the default (envelope) body
+        "plain_ms": times["truepeak_fused"][1],  # its plain version, one call
         "bound_ms": bounds["truepeak_fused"][0],
         "bound_by": bounds["truepeak_fused"][1],
         "library_ms": None,
+        "serial_ms": tp_body_ms[2 * B_MAIN][1],  # body="serial", alternated with it
+        "ms_n8192": tp_body_ms[8192][0],
+        "serial_ms_n8192": tp_body_ms[8192][1],
     }, {
         "name": "bitmeter_stats",
         "route": "cuda",

@@ -69,6 +69,12 @@ struct EnvCoeffs {
   float w, c1, c2, c3, c4;  // w and c_k = 1 - (1 - w)^k
 };
 
+// A sample as the envelope's DP takes it: NaN cannot attack, so it enters
+// as -inf.
+__device__ __forceinline__ float nan_to_ninf(float t) {
+  return t == t ? t : -__int_as_float(0x7f800000);
+}
+
 __device__ __forceinline__ float env_attack(float b, float t, float w) {
   return __fadd_rn(b, __fmul_rn(__fsub_rn(t, b), w));
 }
@@ -77,10 +83,12 @@ __device__ __forceinline__ float env_cand(float d, float b, float c) {
   return __fadd_rn(d, __fsub_rn(b, __fmul_rn(d, c)));
 }
 
-__device__ __forceinline__ float group_env(float z, float w3, const EnvCoeffs& k,
-                                           const float ts[4]) {
+// The DP half of group_env: b_1..b_4 of one group from its samples ts (NaN
+// already -inf) and w.  It never reads the carried state, so it may run
+// anywhere ahead of the carried half (truepeak_fused.cu runs it on other
+// warps than the chain).
+__device__ __forceinline__ float4 env_intercepts(const float ts[4], float w) {
   const float ninf = -__int_as_float(0x7f800000);
-  const float w = k.w;
   // the DP in the plain version's order; b3 and b4 before samples 2 and 3
   // can only be -inf and are not computed
   float b1 = __fmul_rn(ts[0], w);
@@ -93,11 +101,23 @@ __device__ __forceinline__ float group_env(float z, float w3, const EnvCoeffs& k
   b3 = fmaxf(b3, env_attack(b2, ts[3], w));
   b2 = fmaxf(b2, env_attack(b1, ts[3], w));
   b1 = fmaxf(b1, __fmul_rn(ts[3], w));
+  return make_float4(b1, b2, b3, b4);
+}
+
+// The carried half of group_env: z' = max(d, d + (b_k - d c_k)), d = w3 z,
+// the max taken in the plain version's order.
+__device__ __forceinline__ float env_carry(float z, float w3, const EnvCoeffs& k,
+                                           float4 b) {
   const float d = __fmul_rn(z, w3);
-  float out = fmaxf(d, env_cand(d, b1, k.c1));
-  out = fmaxf(out, env_cand(d, b2, k.c2));
-  out = fmaxf(out, env_cand(d, b3, k.c3));
-  return fmaxf(out, env_cand(d, b4, k.c4));
+  float out = fmaxf(d, env_cand(d, b.x, k.c1));
+  out = fmaxf(out, env_cand(d, b.y, k.c2));
+  out = fmaxf(out, env_cand(d, b.z, k.c3));
+  return fmaxf(out, env_cand(d, b.w, k.c4));
+}
+
+__device__ __forceinline__ float group_env(float z, float w3, const EnvCoeffs& k,
+                                           const float ts[4]) {
+  return env_carry(z, w3, k, env_intercepts(ts, k.w));
 }
 
 template <bool kTrackPeak>
@@ -105,9 +125,8 @@ __device__ __forceinline__ void group_env_step(float4 v, const EnvCoeffs& k1,
                                                const EnvCoeffs& k2, float w3,
                                                float& z1, float& z2, float& m,
                                                float& p) {
-  const float ninf = -__int_as_float(0x7f800000);
-  const float ts[4] = {v.x == v.x ? v.x : ninf, v.y == v.y ? v.y : ninf,
-                       v.z == v.z ? v.z : ninf, v.w == v.w ? v.w : ninf};
+  const float ts[4] = {nan_to_ninf(v.x), nan_to_ninf(v.y), nan_to_ninf(v.z),
+                       nan_to_ninf(v.w)};
   z1 = group_env(z1, w3, k1, ts);
   z2 = group_env(z2, w3, k2, ts);
   if (kTrackPeak) p = max_nan(p, fmaxf(fmaxf(ts[0], ts[1]), fmaxf(ts[2], ts[3])));

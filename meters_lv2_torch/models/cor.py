@@ -62,7 +62,7 @@ class CorrelationMeter:
         sequential recurrence, so agreement degrades as T*w2 grows; blocks
         of up to a few seconds stay near 1e-6 (the JAX package's note)."""
         wv, decay = self._ema_weights(prods.shape[-1], prods.device)
-        return zp0 * decay + torch.matmul(prods, wv)
+        return zp0 * decay + lti.matmul(prods, wv)
 
     def init(self, batch_shape=(), device="cuda") -> CorState:
         batch_shape = tuple(batch_shape)

@@ -29,7 +29,7 @@ import torch
 
 from ..ops import resample
 from ..ops.design import upsample_poly_kernel
-from ..ops.lti import canonical_device
+from ..ops.lti import canonical_device, matmul
 from .base import register
 
 _F32 = torch.float32
@@ -118,7 +118,7 @@ class Goniometer:
         if self.os > 1:
             ct, powv, eps_head = self._head_consts(lr.device)
             win = torch.cat([hist, lr[..., :2]], dim=-1)
-            y[..., :3] = torch.matmul(win, ct) + state.lp * powv + eps_head
+            y[..., :3] = matmul(win, ct) + state.lp * powv + eps_head
         lp = y[..., -1:].clone()
         rhist = torch.cat([hist, lr], dim=-1)[..., -nh:].contiguous()
         return y, lp, rhist

@@ -26,6 +26,7 @@ import torch
 
 from ..ops import fft as fft_ops
 from ..ops import stft_fused
+from ..ops.lti import matmul
 from .base import register
 from .cor import CorrelationMeter, CorState
 
@@ -108,9 +109,9 @@ def octave_bands(phase: torch.Tensor, level: torch.Tensor, freq_per_bin: float,
         torch.searchsorted(edges, torch.clamp_min(freqs, 1e-3)) - 1, 0, n_octaves - 1)
     onehot = torch.nn.functional.one_hot(band, n_octaves).to(phase.dtype)
     w = torch.clamp_min(level, 0.0)
-    s = torch.matmul(w * torch.sin(phase), onehot)
-    c = torch.matmul(w * torch.cos(phase), onehot)
-    lv = torch.matmul(w, onehot)
+    s = matmul(w * torch.sin(phase), onehot)
+    c = matmul(w * torch.cos(phase), onehot)
+    lv = matmul(w, onehot)
     return torch.atan2(s, c), lv
 
 

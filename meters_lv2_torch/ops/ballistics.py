@@ -169,7 +169,10 @@ def true_peak_update_fused(
     T % 128 samples (or a whole block shorter than 128) is oversampled by
     resample.upsample4 and chained through ballistics_core.ballistics on
     the carried states, and the g-scale / res-merge / denormal epilogue
-    applies once at the end."""
+    applies once at the end.  The bulk runs truepeak_fused's envelope body
+    at every row count (it beat the serial body at N=512 and N=8,192,
+    PERF.md), and the serial body where the envelope does not hold (w2 > 1:
+    fs below 4,300 Hz, ``truepeak_fused.envelope_ok``)."""
     *batch, T = x.shape
     if T % 4:
         raise ValueError(f"block length {T} is not a multiple of 4")
@@ -183,7 +186,9 @@ def true_peak_update_fused(
 
     Tm = (T // truepeak_fused.BLOCK) * truepeak_fused.BLOCK
     if Tm:
-        z1, z2, m, p, hf = truepeak_fused.truepeak_fused(xf[:, :Tm], hf, z1, z2, m, p, **w)
+        body = "envelope" if truepeak_fused.envelope_ok(coeffs.w1, coeffs.w2) else "serial"
+        z1, z2, m, p, hf = truepeak_fused.truepeak_fused(xf[:, :Tm], hf, z1, z2, m, p, **w,
+                                                         body=body)
     if Tm < T:  # the tail: plain oversampling, chained states, the serial
         # body whatever METERS_TORCH_BALLISTICS_ENV says (the JAX package's
         # tail is its serial _scan_ballistics)

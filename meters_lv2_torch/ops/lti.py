@@ -16,19 +16,70 @@ impulse response.  The block matrices are built on the host in float64 and
 kept as float32 numpy leaves; ``LTIBlockOp.tensors(device)`` caches their
 torch copies per device.
 
-Every product here is IEEE float32: on a CUDA device ``torch.matmul`` runs
-full fp32 as long as ``torch.backends.cuda.matmul.allow_tf32`` stays False
-(PyTorch's default).  The state chain compounds its rounding across blocks
-(see the JAX module's precision note), so it must never run in TF32.
+Every product here is IEEE float32, whatever the caller set: the state
+chain compounds its rounding across blocks (see the JAX module's precision
+note), so it must never run in TF32.  ``ieee_fp32`` pins that for the
+products of the port's glue (``matmul`` here; the LTI scan, the
+resampler, the surround and correlator averages and the phase wheel's
+band sums call it).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+# the per-backend float32 matmul settings (PyTorch 2.9 on); older versions
+# have the global one only
+_FP32_BACKENDS = tuple(
+    b for b in (getattr(torch.backends.cuda, "matmul", None),
+                getattr(getattr(torch.backends, "mkldnn", None), "matmul", None))
+    if b is not None and hasattr(b, "fp32_precision"))
+
+
+def _ieee_already() -> bool:
+    try:
+        return torch.get_float32_matmul_precision() == "highest"
+    except RuntimeError:  # per-backend settings that the global one cannot name
+        return False
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Run the body's float32 matrix products in IEEE float32, with TF32 and
+    bf16 off, whatever ``torch.set_float32_matmul_precision`` or the
+    per-backend ``fp32_precision`` settings say; the caller's settings come
+    back on exit, exception or not."""
+    if _ieee_already():
+        yield
+        return
+    if _FP32_BACKENDS:
+        saved = [b.fp32_precision for b in _FP32_BACKENDS]
+        try:
+            for b in _FP32_BACKENDS:
+                b.fp32_precision = "ieee"
+            yield
+        finally:
+            for b, v in zip(_FP32_BACKENDS, saved):
+                b.fp32_precision = v
+    else:
+        saved = torch.get_float32_matmul_precision()
+        try:
+            torch.set_float32_matmul_precision("highest")
+            yield
+        finally:
+            torch.set_float32_matmul_precision(saved)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul`` in IEEE float32 (``ieee_fp32``)."""
+    with ieee_fp32():
+        return torch.matmul(a, b)
 
 
 class BlockOpTensors(NamedTuple):
@@ -192,7 +243,8 @@ class TensorBlockOp:
 def _mm_state(s: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
     """State s [..., (NB,) i] @ at [(NB,) i, j].  A banked ``at`` holds one
     matrix per bank, contracted with the bank axis of s ("...bi,bij->...bj"):
-    a plain matmul would take s's last two axes as one [NB, i] matrix."""
+    a plain matmul would take s's last two axes as one [NB, i] matrix.
+    Called inside ``lti_scan``'s ``ieee_fp32`` block."""
     if at.ndim == 2:
         return torch.matmul(s, at)
     return torch.matmul(s.unsqueeze(-2), at).squeeze(-2)
@@ -237,17 +289,18 @@ def lti_scan(
     w = op.tensors(u.device)
 
     uf = u.reshape(*batch, nblk, op.block * op.m)
-    conv_y = torch.matmul(uf, w.kmat)  # [..., nblk, T*p]
-    gin = torch.matmul(uf, w.g)  # [..., nblk, d]
+    with ieee_fp32():  # one block for the scan: the loop pays for it once
+        conv_y = torch.matmul(uf, w.kmat)  # [..., nblk, T*p]
+        gin = torch.matmul(uf, w.g)  # [..., nblk, d]
 
-    s = torch.broadcast_to(s0, gin.shape[:-2] + (op.d,))
-    entry = []
-    for k in range(nblk):
-        entry.append(s)
-        s = _mm_state(s, w.at) + gin[..., k, :]
-    s_all = torch.stack(entry, dim=-2)  # [..., nblk, d] entry states
+        s = torch.broadcast_to(s0, gin.shape[:-2] + (op.d,))
+        entry = []
+        for k in range(nblk):
+            entry.append(s)
+            s = _mm_state(s, w.at) + gin[..., k, :]
+        s_all = torch.stack(entry, dim=-2)  # [..., nblk, d] entry states
 
-    y = conv_y + torch.matmul(s_all, w.sy)
+        y = conv_y + torch.matmul(s_all, w.sy)
     y = y.reshape(*batch, T_total, op.p)
     if squeeze:
         y = y[..., 0]

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .design import upsample4_kernel, upsample_poly_kernel
-from .lti import canonical_device
+from .lti import canonical_device, matmul
 
 _HL = 24  # zita half-length: 48 taps, 47 samples of history
 
@@ -113,7 +113,7 @@ def _upsample_blocked(
     outs = []
     for frames, step in _frames(xp, T, nh, tb):
         M = _block_matrix_on(taps_np, step, x.device)
-        y = torch.matmul(frames, M)
+        y = matmul(frames, M)
         outs.append(y.reshape(*batch, -1))
     up = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
     return up, xp[..., -nh:]
@@ -133,7 +133,7 @@ def upsample4_absmax(
     best = torch.zeros(batch, dtype=x.dtype, device=x.device)
     for frames, step in _frames(xp, T, nh):
         M = _block_matrix_on(taps_np, step, x.device)
-        av = torch.matmul(frames, M).abs()
+        av = matmul(frames, M).abs()
         # reference `if (v > m) m = v` (truepeakdsp.cc:111-122): NaN
         # comparisons are false, so NaN oversamples are skipped, not
         # propagated (0 is the max identity here; +/-Inf still registers)

@@ -43,7 +43,7 @@ import os
 import numpy as np
 import torch
 
-from .lti import canonical_device, check_tensor
+from .lti import canonical_device, check_tensor, matmul
 
 BLOCK = 128  # kernel block (samples); T must be a multiple
 # channel counts the kernel is built for, each with its pair count
@@ -108,7 +108,7 @@ def fused_core_reference(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv):
     pk = torch.amax(torch.where(torch.isnan(sq), 0.0, sq), dim=-1)
     _, kmz = km_sys.apply(sq.reshape(*batch, C, T // 4, 4), km_z, prefer_block=BLOCK // 4)
     y, zl = lp_sys.apply(x + lowpass_eps(w1), zl)
-    pacc = torch.matmul(pair_products(sel_a, sel_b, y), wv)
+    pacc = matmul(pair_products(sel_a, sel_b, y), wv)
     return kmz, zl, pk, pacc
 
 

@@ -144,9 +144,12 @@ def kernels() -> ctypes.CDLL:
         f.restype = ci
         f.argtypes = (
             [vp, ci]  # x (device), row stride
-            + [vp] * 6  # hist, z1, z2, m, p, taps (device)
+            + [vp] * 5  # hist, z1, z2, m, p (device)
+            + [ctypes.POINTER(ctypes.c_float)]  # taps [4, 48] (host)
             + [ci] * 2  # N, T
             + [cf] * 3  # w1, w2, w3
+            + [ci]  # envelope
+            + [ctypes.POINTER(ctypes.c_float)]  # envelope decrements c_k (host)
             + [vp] * 5  # z1, z2, m, p, hist out (device)
             + [vp]  # cudaStream_t
         )

@@ -10,9 +10,10 @@ different summation orders; tolerances as in chip_smoke.py: p to 1e-5
 relative plus 2e-6 of the call's max p, the K-weighting state to 4e-6 of
 each component's scale, the history bit-exact, tpmax to 1e-6 relative.
 ballistics: bit-exact (the same fp32 operations in the same order).
-truepeak_fused: the history bit-exact, z1/z2/m/p within 1e-5 relative (the
-FIR sums its products in another order than the plain version's block
-matmul; the chain itself adds nothing).
+truepeak_fused, each body against its own plain version: the history
+bit-exact, z1/z2/m/p within 1e-5 relative (the FIR sums its products in
+another order than the plain version's block matmul; the chain itself adds
+nothing).
 bitmeter_stats: every field exact (integer counts, min/max of the same
 floats).  The statistics meters, card against CPU: histograms and counters
 exact, float leaves within 1e-5 of their scale.
@@ -150,8 +151,12 @@ def test_ballistics_kernel_matches_plain(cuda, N, T, track_peak, nonfinite):
     assert all(_same(a, b) for a, b in zip(got, ref))
 
 
-@pytest.mark.parametrize("N,T,nonfinite", [(3, 1280, False), (6, 1024, True)])
-def test_truepeak_kernel_matches_plain(cuda, N, T, nonfinite):
+@pytest.mark.parametrize("body", truepeak_fused.BODIES)
+@pytest.mark.parametrize("N,T,nonfinite", [(3, 1280, False), (6, 1024, True),
+                                           (9, 2560, False)])
+def test_truepeak_kernel_matches_plain(cuda, N, T, nonfinite, body):
+    """Each body against its own plain version (N=3 and N=9: a CTA's 4 rows
+    partly filled)."""
     rng = np.random.default_rng(N * T)
     x = (0.3 * rng.standard_normal((N, T))).astype(np.float32)
     h = (0.1 * rng.standard_normal((N, 47))).astype(np.float32)
@@ -161,12 +166,13 @@ def test_truepeak_kernel_matches_plain(cuda, N, T, nonfinite):
         h[3, 10], h[4, 46] = np.nan, np.inf
     c = design.true_peak_ballistics(48000)
     args = [torch.as_tensor(a, device=cuda) for a in [x, h] + st]
-    w = dict(w1=c.w1, w2=c.w2, w3=c.w3)
-    n0 = truepeak_fused.launch_count
+    w = dict(w1=c.w1, w2=c.w2, w3=c.w3, body=body)
+    count = "launch_count" if body == "envelope" else "serial_launch_count"
+    n0 = getattr(truepeak_fused, count)
     got = truepeak_fused.truepeak_fused(*args, **w)
     ref = truepeak_fused.truepeak_fused_reference(*args, **w)
     torch.cuda.synchronize()
-    assert truepeak_fused.launch_count == n0 + 1
+    assert getattr(truepeak_fused, count) == n0 + 1
     assert torch.equal(got[4], ref[4])
     for a, b in zip(got[:4], ref[:4]):
         assert torch.equal(torch.isnan(a), torch.isnan(b))
