@@ -8,7 +8,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases, each printed on its own line; any failure exits non-zero:
 
   1. device   the card, its power limit, fp32 matmul precision settings;
-  2. build    nvcc builds every kernel from meters_lv2_torch/csrc;
+  2. build    nvcc builds every kernel from meters_lv2_torch/csrc, and
+              spectrum_fused's body before its Hopper redesign
+              (tools/spectrum_probe.py's parent variant, the yardstick of
+              phase 6) beside them;
   3. kernels  each kernel (r128_fused, ballistics, truepeak_fused,
               bitmeter_stats, spectrum_fused, surround_fused, stft_fused)
               against its plain PyTorch version on the same card tensors
@@ -57,7 +60,10 @@ Phases, each printed on its own line; any failure exits non-zero:
               surround5 and surround8 with METERS_TORCH_SURROUND_WIDE=1
               against the narrow run, each variant's launches counted;
               then 60 x 1 s carried through both truepeak_fused bodies at
-              N=512 (the largest relative difference of z1, z2 and m), and
+              N=512 (the largest relative difference of z1, z2 and m), 60 x
+              1 s at B=8 carried through spectrum_fused and its plain
+              version (each its own state; val, peak and zf of every call
+              within SPEC_TOL), and
               K20stereo, COR, goniometer, phasewheel and surround5 under a
               caller's torch.set_float32_matmul_precision("high") against
               the "highest" run, bit for bit;
@@ -69,7 +75,8 @@ Phases, each printed on its own line; any failure exits non-zero:
               phase wheel, stereoscope, goniometer); then the DIN, BBC and
               BBC M-6 fixtures through the envelope body and the surround
               fixtures through the wide layout;
-  6. times    each kernel vs its plain version, truepeak_fused's envelope
+  6. times    each kernel vs its plain version (spectrum_fused also
+              alternated with the parent body), truepeak_fused's envelope
               and serial bodies alternated at N=512 and N=8,192, the
               ballistics kernel alone
               at 4,224 to 33,792 rows, and main-path x-realtime (R128 over
@@ -154,9 +161,10 @@ N_STATS = 60  # main-path blocks of the statistics meters (20 DR windows)
 # within SPEC_TOL of the leaf's scale (max |x| over the leaf's finite
 # values), with the same NaN and Inf positions.  The kernel runs the
 # display smoother sample by sample, the plain version as blocked Toeplitz
-# products, and the filter products in another order; a numpy emulation of
-# the kernel's arithmetic differs from the plain version by 5.6e-7 of the
-# val scale at B=6, T=512.  spectr30stereo on the card against the CPU:
+# products, and the filter products in 3xTF32 on the tensor cores; the numpy
+# emulation of the kernel's arithmetic (tests/test_torch_spectrum_body.py)
+# differs from the plain version by 1.2e-6 of the val scale over 1 s at B=4
+# (a single TF32 pass: 1.7e-4).  spectr30stereo on the card against the CPU:
 # the state of streams 0-3 within SPEC_TOL of each band's scale, the
 # readouts within STATS_TOL_DB (an H100 run measured 1.14e-5 dB over 1 s
 # blocks and 1.91e-5 dB over 1000-sample blocks).
@@ -572,8 +580,10 @@ def spec_omega(spec, speed, dev):
 
 def spectrum_kernel_cases(dev):
     """spectrum_fused against its plain version: the main-path shape, one
-    block, a partial tile of streams, NaN/+-Inf rows, a NaN omega
-    (set_speed(NaN)) and an omega changed between two chained calls.
+    block, a partial tile of streams, NaN/+-Inf rows, the NaNs the card's
+    own arithmetic makes (0x7fffffff, and 0xffffffff), which the kernel's
+    TF32 split turns into zeros, a NaN omega (set_speed(NaN)) and an omega
+    changed between two chained calls.
     Returns (max abs error at the main-path shape, breaches)."""
     import torch
 
@@ -588,10 +598,15 @@ def spectrum_kernel_cases(dev):
         ("one block B=4 T=128", 4, 128, False, 3.0),
         ("B=13 T=1024, a partial tile of streams", 13, 1024, False, 3.0),
         ("NaN/+-Inf in x, z0 and v0, B=7 T=1024", 7, 1024, True, 3.0),
+        ("NaNs 0x7fffffff and 0xffffffff in x, B=5 T=1024", 5, 1024, "card", 3.0),
         ("NaN omega (set_speed(NaN)), B=5 T=256", 5, 256, False, float("nan")),
     ]:
         x, z0, v0 = spec_inputs(spec, B, T, B + T, dev)
-        if inject:
+        if inject == "card":
+            u = x.view(np.uint32)
+            u[0, 37], u[1, 300], u[2, 0], u[2, 900] = 0x7FFFFFFF, 0xFFFFFFFF, 0x7FFFFFFF, 0xFFFFFFFF
+            u[3, 127] = 0x7FFFFFFF
+        elif inject:
             x[0, 37], x[1, T - 1], x[2, 0] = np.nan, np.inf, -np.inf
             x[3, 130], x[3, 200], x[4, 128] = np.inf, -np.inf, np.inf
             v0[5, 3], v0[5, 4], v0[5, 5] = np.inf, np.nan, -np.inf
@@ -731,6 +746,87 @@ def spectrum_main(dev, blocks_dev, blocks3, reset_counts):
     return n_main, n_tail
 
 
+def spectrum_carried(dev):
+    """N_CARRIED x 1 s at B=8 through spectrum_fused and through its plain
+    version, each path carrying its own state (zf and val) as the meter
+    does: val, block peak and zf of every call within SPEC_TOL of each
+    leaf's scale, with the same non-finite values.  The kernel's 3xTF32
+    products must not drift from the plain version's fp32 over a minute
+    (the state chain carries them; band 0's poles are the nearest to the
+    unit circle)."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import spectrum_fused
+
+    spec = meters_lv2_torch.create("spectr30stereo", FS)
+    sop = spec.bank.op(128)
+    x, z0, v0 = spec_inputs(spec, 8, N_CARRIED * FS, 12, dev)
+    xd = torch.as_tensor(x, device=dev)
+    om = spec_omega(spec, 3.0, dev)
+    got, ref = (z0, v0), (z0, v0)
+    worst = {"val": 0.0, "peak": 0.0, "zf": 0.0}
+    for i in range(N_CARRIED):
+        xb = xd[:, i * FS:(i + 1) * FS].contiguous()
+        g = spectrum_fused.fused_core(xb, got[0], got[1], om, sop)
+        r = spectrum_fused.fused_core_reference(xb, ref[0], ref[1], om, sop)
+        for n, a, b in zip(worst, g, r):
+            if not same_nonfinite(a, b):
+                fail(f"spectrum_fused carried, call {i}: {n} non-finite values differ")
+            err, scale = leaf_err(a, b)
+            worst[n] = max(worst[n], err / scale if scale else 0.0)
+        got, ref = (g[2], g[0]), (r[2], r[0])
+    torch.cuda.synchronize()
+    if not all(v <= SPEC_TOL for v in worst.values()):
+        fail(f"spectrum_fused carried {N_CARRIED} s at B=8: kernel vs plain version {worst} of "
+             f"each leaf's scale, bar {SPEC_TOL}")
+    print(f"phase main: ok: spectrum_fused {N_CARRIED} x 1 s carried at B=8 T={FS}, kernel and "
+          f"plain version each on its own state: worst over the calls " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items()) + f" of each leaf's scale (bar {SPEC_TOL})")
+
+
+def spectrum_nonfinite_meter(dev):
+    """spectr30stereo on the card against the CPU with non-finite samples:
+    3 streams in 1000-sample blocks, stream 0 with a NaN in L and stream 1
+    with +Inf in L against -Inf in R in block 2 (both reach the kernel as
+    the card's NaN 0x7fffffff from the downmix 0.5 (L + R)), stream 2
+    clean.  After block 2 the state of streams 0-1 is flushed on both alike
+    and equal; after 6 blocks the readouts are within STATS_TOL_DB."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import spectrum_fused
+
+    m = meters_lv2_torch.create("spectr30stereo", FS)
+    rng = np.random.default_rng(21)
+    sg, sc = m.init((3,), device=dev), m.init((3,), device="cpu")
+    n0 = spectrum_fused.launch_count
+    for i in range(6):
+        x = (0.2 * rng.standard_normal((3, 2, 1000))).astype(np.float32)
+        if i == 2:
+            x[0, 0, 50] = np.nan
+            x[1, 0, 500], x[1, 1, 500] = np.inf, -np.inf
+        sg = m.update(sg, torch.as_tensor(x, device=dev), stereo=True)
+        sc = m.update(sc, torch.from_numpy(x), stereo=True)
+        if i == 2:
+            flushed = [torch.equal(getattr(sg, k)[:2].cpu(), getattr(sc, k)[:2])
+                       for k in ("val", "peak", "zf")]
+            if not all(flushed) or bool((sc.zf[:2] != 0).any()):
+                fail("spectr30stereo with NaN / +Inf against -Inf on the card: streams 0-1's "
+                     f"val, peak, zf after the block equal to the CPU's flushed state {flushed}")
+    og, _ = m.read(sg)
+    oc, _ = m.read(sc)
+    torch.cuda.synchronize()
+    if spectrum_fused.launch_count != n0 + 6:
+        fail(f"spectr30stereo non-finite: spectrum_fused launches {spectrum_fused.launch_count - n0}")
+    d_db = max((og[k].cpu() - oc[k]).abs().max().item() for k in ("bands", "peaks"))
+    if not d_db < STATS_TOL_DB:
+        fail(f"spectr30stereo with NaN / +Inf against -Inf: card vs CPU readouts {d_db} dB")
+    print(f"phase main: ok: spectr30stereo on the card with a NaN in L and +Inf in L against -Inf "
+          f"in R (block 2 of 6 x 1000 samples, B=3): streams 0-1 flushed as on the CPU, "
+          f"readouts {d_db:.3g} dB from the CPU's")
+
+
 def spectrum_golden(dev):
     """The five spectrum fixtures streamed whole on ``dev``."""
     import test_torch_golden_spectrum as gspec
@@ -749,8 +845,11 @@ def spectrum_golden(dev):
 
 def spectrum_times(dev, blocks_dev, gpu):
     """spectrum_fused against its plain version at the main-path shape
-    (plain, kernel, kernel, plain), and spectr30stereo's x-realtime over 60
-    blocks at B=256.  Returns (kernel ms, plain ms)."""
+    (plain, kernel, kernel, plain), then against its body before the
+    redesign (tools/spectrum_probe.py's parent variant, as built by
+    ``--build parent``: parent, kernel, kernel, parent), and
+    spectr30stereo's x-realtime over 60 blocks at B=256.  Returns (kernel
+    ms, plain ms, parent ms)."""
     import torch
 
     import meters_lv2_torch
@@ -767,9 +866,24 @@ def spectrum_times(dev, blocks_dev, gpu):
             ms_k.append(cuda_ms(lambda: spectrum_fused.fused_core(xd, z0, v0, om, sop), 10))
         else:
             ms_p.append(cuda_ms(lambda: spectrum_fused.fused_core_reference(xd, z0, v0, om, sop), 3))
-    ms = (statistics.mean(ms_k), statistics.mean(ms_p))
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import spectrum_probe
+
+    parent = spectrum_probe.fused_launcher(spectrum_probe.OUT / "libparent.so")
+    w = sop.tensors(dev)
+    ms_k2, ms_par = [], []
+    for which in "pkkp":
+        if which == "k":
+            ms_k2.append(cuda_ms(lambda: spectrum_fused.fused_core(xd, z0, v0, om, sop), 10))
+        else:
+            ms_par.append(cuda_ms(lambda: spectrum_probe.launch_fused(parent, xd, z0, v0, om, w),
+                                  10))
+    ms = (statistics.mean(ms_k), statistics.mean(ms_p), statistics.mean(ms_par))
     print(f"phase times: spectrum_fused kernel {ms[0]:.4f} ms (medians {ms_k}), plain version "
           f"{ms[1]:.4f} ms (medians {ms_p}) at B={B_MAIN} T={FS} [{gpu}]")
+    print(f"phase times: spectrum_fused yardstick: kernel {statistics.mean(ms_k2):.4f} ms "
+          f"(medians {ms_k2}), the body before its redesign {ms[2]:.4f} ms (medians {ms_par}), "
+          f"alternated parent, kernel, kernel, parent at B={B_MAIN} T={FS} [{gpu}]")
     del xd, z0, v0
     runs = []
     for _ in range(2):
@@ -1683,7 +1797,7 @@ def variants_golden(dev):
           f"0 narrow): {'; '.join(gw)}")
 
 
-N_CARRIED = 60  # 1 s blocks carried through both truepeak_fused bodies
+N_CARRIED = 60  # 1 s blocks carried through both truepeak_fused bodies and spectrum_fused
 
 
 def truepeak_carried(dev, blocks_dev, w_tp):
@@ -1931,6 +2045,14 @@ def stop_workers():
         POOL.terminate()
         POOL.join()
         POOL = None
+    if PARENT_BUILD is not None and PARENT_BUILD.poll() is None:
+        PARENT_BUILD.kill()
+        PARENT_BUILD.wait()
+
+
+# nvcc of spectrum_fused's parent body (tools/spectrum_probe.py --build
+# parent), the yardstick of phase 6, run beside the package's build
+PARENT_BUILD = None
 
 
 def main():
@@ -1968,6 +2090,12 @@ def main():
     dev = torch.device("cuda", 0)
 
     # -- 2. build -----------------------------------------------------------
+    # spectrum_fused's parent body (the yardstick of phase 6) builds beside
+    # the package: the probe's own build, one more nvcc process, started first
+    global PARENT_BUILD
+    PARENT_BUILD = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tools", "spectrum_probe.py"), "--build", "parent"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
     build.build()
     build.kernels()
@@ -2342,6 +2470,8 @@ def main():
         dev, blocks_dev, reset_counts, all_counts)
     marks.append(("main variants", time.perf_counter()))
     truepeak_carried(dev, blocks_dev, w_tp)
+    spectrum_carried(dev)
+    spectrum_nonfinite_meter(dev)
     fp32_pinned(dev, blocks3)
     marks.append(("main truepeak carried and fp32", time.perf_counter()))
 
@@ -2513,6 +2643,9 @@ def main():
               f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update); "
               + stats_profile(m, st, xs, enqueue, N_STATS, layout == "stereo") + f" [{gpu}]")
 
+    out = PARENT_BUILD.communicate()[0]
+    if PARENT_BUILD.returncode:
+        fail(f"the spectrum_fused parent body did not build:\n{out[-3000:]}")
     times["spectrum_fused"] = spectrum_times(dev, blocks_dev, gpu)
     marks.append(("times before surround", time.perf_counter()))
     sur_ms = surround_times(dev, blocks3, gpu)
@@ -2648,6 +2781,7 @@ def main():
         "bound_ms": bounds["spectrum_fused"][0],
         "bound_by": bounds["spectrum_fused"][1],
         "library_ms": None,
+        "parent_ms": times["spectrum_fused"][2],  # the body before its redesign, alternated
     }, {
         "name": "surround_fused",
         "route": "cuda",

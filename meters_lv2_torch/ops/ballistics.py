@@ -56,8 +56,10 @@ def _run_ballistics(coeffs: BallisticsCoeffs, t, z1, z2, m, p):
     ballistics_core.ballistics.
 
     ``METERS_TORCH_BALLISTICS_ENV=1``, read on each call, selects the
-    group-envelope body (the JAX package's METERS_TPU_BALLISTICS_ENV);
-    the default ``0`` runs the serial body."""
+    group-envelope body (the JAX package's METERS_TPU_BALLISTICS_ENV)
+    where it holds (``ballistics_core.envelope_ok``: true peak below
+    fs = 4,300 Hz runs the serial body whatever the variable says); the
+    default ``0`` runs the serial body."""
     *batch, T = t.shape
     track_peak = p is not None
     rows = t.reshape(-1, T).contiguous()
@@ -69,7 +71,8 @@ def _run_ballistics(coeffs: BallisticsCoeffs, t, z1, z2, m, p):
         rows, flat(z1), flat(z2), flat(m),
         flat(p if track_peak else torch.zeros_like(m)),
         w1=coeffs.w1, w2=coeffs.w2, w3=coeffs.w3, track_peak=track_peak,
-        envelope=os.environ.get("METERS_TORCH_BALLISTICS_ENV", "0") == "1",
+        envelope=(os.environ.get("METERS_TORCH_BALLISTICS_ENV", "0") == "1"
+                  and ballistics_core.envelope_ok(coeffs.w1, coeffs.w2)),
     )
     z1, z2, m, p = (v.reshape(batch) for v in (z1, z2, m, p))
     return z1, z2, m, (p if track_peak else None)
@@ -172,7 +175,7 @@ def true_peak_update_fused(
     applies once at the end.  The bulk runs truepeak_fused's envelope body
     at every row count (it beat the serial body at N=512 and N=8,192,
     PERF.md), and the serial body where the envelope does not hold (w2 > 1:
-    fs below 4,300 Hz, ``truepeak_fused.envelope_ok``)."""
+    fs below 4,300 Hz, ``ballistics_core.envelope_ok``)."""
     *batch, T = x.shape
     if T % 4:
         raise ValueError(f"block length {T} is not a multiple of 4")
@@ -186,7 +189,7 @@ def true_peak_update_fused(
 
     Tm = (T // truepeak_fused.BLOCK) * truepeak_fused.BLOCK
     if Tm:
-        body = "envelope" if truepeak_fused.envelope_ok(coeffs.w1, coeffs.w2) else "serial"
+        body = "envelope" if ballistics_core.envelope_ok(coeffs.w1, coeffs.w2) else "serial"
         z1, z2, m, p, hf = truepeak_fused.truepeak_fused(xf[:, :Tm], hf, z1, z2, m, p, **w,
                                                          body=body)
     if Tm < T:  # the tail: plain oversampling, chained states, the serial

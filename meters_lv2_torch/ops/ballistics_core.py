@@ -69,6 +69,14 @@ def coeffs_f32(w1: float, w2: float, w3: float) -> tuple[float, float, float]:
     return f32(w1), f32(w2), f32(w3)
 
 
+def envelope_ok(w1: float, w2: float) -> bool:
+    """True when the envelope body holds for the float32 coefficients:
+    0 <= w <= 1 for w1 and w2, so that every attack step
+    z' = max(z, (1 - w) z + w t) is monotone in z.  True peak's
+    w2 = 4300 / fs passes 1 below fs = 4,300 Hz."""
+    return all(0.0 <= w <= 1.0 for w in coeffs_f32(w1, w2, 0.0)[:2])
+
+
 def envelope_decrements(w: float) -> tuple[float, float, float, float]:
     """c_k = 1 - (1 - w)^k, k = 1..4 (w the float32 coefficient), each taken
     in float64 and rounded to float32 once; c_1 is w itself.  The kernel
@@ -248,9 +256,12 @@ def ballistics(
     envelope: bool = False,
 ):
     """The recurrence over t_abs [N, T]; arguments and returns as
-    ``ballistics_reference``; ``envelope`` selects the group-envelope body.
-    A CUDA tensor goes to the CUDA kernel (contiguous float32 inputs); a CPU
-    tensor to the plain version of the body."""
+    ``ballistics_reference``; ``envelope`` selects the group-envelope body,
+    which raises outside its domain (``envelope_ok``).  A CUDA tensor goes
+    to the CUDA kernel (contiguous float32 inputs); a CPU tensor to the
+    plain version of the body."""
+    if envelope and not envelope_ok(w1, w2):
+        raise ValueError(f"the envelope body needs 0 <= w1, w2 <= 1, got w1={w1} w2={w2}")
     if t_abs.device.type == "cuda":
         return _ballistics_cuda(t_abs, z1, z2, m, p, w1, w2, w3, track_peak, envelope)
     if t_abs.device.type == "cpu":

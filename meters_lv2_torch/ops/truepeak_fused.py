@@ -15,9 +15,9 @@ DP never reads the carried state; ``body="serial"`` runs the serial step
 envelope's bar, tests/test_torch_variants.py), with the same non-finite
 values, where the envelope holds: its max-of-affine form needs every
 attack step z' = max(z, (1 - w) z + w t) monotone in z, 0 <= w <= 1 for
-w1 and w2 (``envelope_ok``).  True peak's w2 = 4300 / fs passes 1 below
-fs = 4,300 Hz; there the envelope body refuses and the meter runs the
-serial one (ops/ballistics.py).
+w1 and w2 (``ballistics_core.envelope_ok``).  True peak's w2 = 4300 / fs
+passes 1 below fs = 4,300 Hz; there the envelope body refuses and the
+meter runs the serial one (ops/ballistics.py).
 
 ``truepeak_fused`` launches the hand-written CUDA kernel
 (csrc/truepeak_fused.cu) for CUDA tensors, in which the oversampled stream
@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from . import ballistics_core, resample
-from .ballistics_core import coeffs_f32, envelope_decrements
+from .ballistics_core import coeffs_f32, envelope_decrements, envelope_ok
 from .lti import check_tensor
 
 BLOCK = 128  # kernel block (samples); T must be a multiple
@@ -47,12 +47,6 @@ _NH = 47  # resampler history
 # truepeak_fused() counts.
 launch_count = 0
 serial_launch_count = 0
-
-
-def envelope_ok(w1: float, w2: float) -> bool:
-    """True when the envelope body holds for the float32 coefficients:
-    0 <= w <= 1 for w1 and w2."""
-    return all(0.0 <= w <= 1.0 for w in coeffs_f32(w1, w2, 0.0)[:2])
 
 
 def _check_body(body: str, w1: float, w2: float) -> None:

@@ -248,3 +248,43 @@ def test_ppm_and_true_peak_ops_match_jax():
                     got, want = getattr(a, f).numpy(), np.asarray(getattr(b, f))
                     assert got.dtype == want.dtype and got.shape == want.shape, f
                     np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=f)
+
+
+def test_unfused_true_peak_below_4300_hz_with_the_envelope_switch(monkeypatch):
+    """At fs = 2000, true peak's w2 = 4300 / fs passes 1, outside the
+    envelope body's domain: with METERS_TORCH_BALLISTICS_ENV=1 the unfused
+    true_peak_update still runs the serial body and reads as the JAX
+    package's (within 0.01 dB)."""
+    from meters_lv2_torch.ops import ballistics as t_bal
+
+    monkeypatch.setenv("METERS_TORCH_BALLISTICS_ENV", "1")
+    tp_t, tp_j = t_design.true_peak_ballistics(2000), j_design.true_peak_ballistics(2000)
+    assert tp_t.w2 > 1 and not ballistics_core.envelope_ok(tp_t.w1, tp_t.w2)
+    rng = np.random.default_rng(21)
+    tt, jt = t_bal.true_peak_init((3,), device="cpu"), j_bal.true_peak_init((3,))
+    n0 = ballistics_core.envelope_launch_count
+    for i in range(4):
+        x = np.abs(rng.standard_normal((3, 512)) * (1.0 if i % 2 else 0.1)).astype(np.float32)
+        tt = t_bal.true_peak_update(tp_t, tt, torch.from_numpy(x))
+        jt = j_bal.true_peak_update(tp_j, jt, jnp.asarray(x))
+    tm, tpk, _ = t_bal.true_peak_read(tt)
+    jm, jpk, _ = j_bal.true_peak_read(jt)
+    for got, want in ((tm.numpy(), np.asarray(jm)), (tpk.numpy(), np.asarray(jpk))):
+        assert np.all(np.isfinite(got)) and np.all(want > 0)
+        np.testing.assert_array_less(np.abs(20 * np.log10(got / want)), 0.01)
+    assert ballistics_core.envelope_launch_count == n0  # no kernel on the CPU
+
+
+def test_envelope_body_refuses_coefficients_outside_its_domain():
+    """ballistics(envelope=True) raises for w2 > 1 (and w1 < 0); the serial
+    body takes them."""
+    t = torch.full((2, 16), 0.5)
+    z = torch.zeros(2)
+    tp = t_design.true_peak_ballistics(2000)
+    for w1, w2 in ((tp.w1, tp.w2), (-0.1, 0.5)):
+        with pytest.raises(ValueError, match="envelope body needs"):
+            ballistics_core.ballistics(t, z, z, z, z, w1=w1, w2=w2, w3=tp.w3,
+                                       track_peak=True, envelope=True)
+    got = ballistics_core.ballistics(t, z, z, z, z, w1=tp.w1, w2=tp.w2, w3=tp.w3,
+                                     track_peak=True)
+    assert all(bool(torch.isfinite(v).all()) for v in got)

@@ -299,12 +299,19 @@ def _assert_spectrum_close(got, ref):
 
 @pytest.mark.parametrize("B,T,nonfinite,speed", [
     (8, 1024, False, 3.0), (4, 128, False, 3.0), (13, 768, False, 3.0), (7, 1024, True, 3.0),
-    (5, 256, False, float("nan")),
+    (5, 1024, "card", 3.0), (5, 256, False, float("nan")),
 ])
 def test_spectrum_kernel_matches_plain(cuda, B, T, nonfinite, speed):
+    """nonfinite True: NaN/+-Inf in x, z0 and v0; "card": the NaNs the
+    card's arithmetic makes, 0x7fffffff (and 0xffffffff), which the TF32
+    split turns into zeros."""
     spec = meters_lv2_torch.create("spectr30stereo", 48000)
     x, z0, v0 = _spectrum_inputs(spec, B, T, B + T, cuda)
-    if nonfinite:
+    if nonfinite == "card":
+        u = x.view(np.uint32)
+        u[0, 37], u[1, 300], u[2, 0], u[2, 900] = 0x7FFFFFFF, 0xFFFFFFFF, 0x7FFFFFFF, 0xFFFFFFFF
+        u[3, 127] = 0x7FFFFFFF
+    elif nonfinite:
         x[0, 37], x[1, T - 1], x[2, 0] = np.nan, np.inf, -np.inf
         x[3, 130], x[3, 200], x[4, 128] = np.inf, -np.inf, np.inf
         v0[5, 3], v0[5, 4], v0[5, 5] = np.inf, np.nan, -np.inf
@@ -318,6 +325,41 @@ def test_spectrum_kernel_matches_plain(cuda, B, T, nonfinite, speed):
     torch.cuda.synchronize()
     assert spectrum_fused.launch_count == n0 + 1
     _assert_spectrum_close(got, ref)
+
+
+def test_spectrum_kernel_misaligned_x(cuda):
+    """x contiguous but 4 bytes off a 16-byte boundary (a view into a flat
+    buffer): the kernel's plain-load path instead of its bulk copies."""
+    spec = meters_lv2_torch.create("spectr30stereo", 48000)
+    x, z0, v0 = _spectrum_inputs(spec, 5, 512, 3, cuda)
+    flat = torch.empty(x.size + 1, device=cuda)
+    xd = flat[1:].view(5, 512)
+    xd.copy_(torch.as_tensor(x, device=cuda))
+    assert xd.is_contiguous() and xd.data_ptr() % 16
+    om = spec.set_speed(spec.init((), device=cuda), 3.0).omega
+    op = spec.bank.op(128)
+    got = spectrum_fused.fused_core(xd, z0, v0, om, op)
+    ref = spectrum_fused.fused_core_reference(xd, z0, v0, om, op)
+    torch.cuda.synchronize()
+    _assert_spectrum_close(got, ref)
+
+
+@pytest.mark.parametrize("B,seconds", [(8, 60)])
+def test_spectrum_kernel_matches_plain_carried(cuda, B, seconds):
+    """chip_smoke.py's carried case: 1 s calls, the kernel and the plain
+    version each carrying its own state; every call within SPEC_TOL."""
+    spec = meters_lv2_torch.create("spectr30stereo", 48000)
+    x, z0, v0 = _spectrum_inputs(spec, B, seconds * 48000, 12, cuda)
+    xd = torch.as_tensor(x, device=cuda)
+    om = spec.set_speed(spec.init((), device=cuda), 3.0).omega
+    op = spec.bank.op(128)
+    got, ref = (z0, v0), (z0, v0)
+    for i in range(seconds):
+        xb = xd[:, i * 48000:(i + 1) * 48000].contiguous()
+        g = spectrum_fused.fused_core(xb, got[0], got[1], om, op)
+        r = spectrum_fused.fused_core_reference(xb, ref[0], ref[1], om, op)
+        _assert_spectrum_close(g, r)
+        got, ref = (g[2], g[0]), (r[2], r[0])
 
 
 def test_spectrum_meter_on_card_matches_cpu(cuda):
@@ -337,6 +379,30 @@ def test_spectrum_meter_on_card_matches_cpu(cuda):
         sg = m.update(sg, torch.as_tensor(x, device=cuda), stereo=True)
         sc = m.update(sc, torch.from_numpy(x), stereo=True)
     assert spectrum_fused.launch_count == n0 + 30
+    og, _ = m.read(sg)
+    oc, _ = m.read(sc)
+    for k in ("bands", "peaks"):
+        assert (og[k].cpu() - oc[k]).abs().max().item() < 1e-3, k
+
+
+def test_spectrum_meter_nonfinite_on_card_matches_cpu(cuda):
+    """chip_smoke.py's case: a NaN in L (stream 0) and +Inf in L against
+    -Inf in R (stream 1) reach the kernel as the card's NaN 0x7fffffff from
+    the downmix; the state is flushed as on the CPU, and the readouts agree."""
+    m = meters_lv2_torch.create("spectr30stereo", 48000)
+    rng = np.random.default_rng(21)
+    sg, sc = m.init((3,), device=cuda), m.init((3,), device="cpu")
+    for i in range(6):
+        x = (0.2 * rng.standard_normal((3, 2, 1000))).astype(np.float32)
+        if i == 2:
+            x[0, 0, 50] = np.nan
+            x[1, 0, 500], x[1, 1, 500] = np.inf, -np.inf
+        sg = m.update(sg, torch.as_tensor(x, device=cuda), stereo=True)
+        sc = m.update(sc, torch.from_numpy(x), stereo=True)
+        if i == 2:
+            assert not sc.zf[:2].any()
+            for k in ("val", "peak", "zf"):
+                assert torch.equal(getattr(sg, k)[:2].cpu(), getattr(sc, k)[:2]), k
     og, _ = m.read(sg)
     oc, _ = m.read(sc)
     for k in ("bands", "peaks"):
@@ -608,6 +674,19 @@ def test_analyzer_on_card_matches_cpu(cuda, name, fs):
 # its plain version, z / hist / tpmax bit-identical to the same kernel's
 # full-rate mode; wide: the narrow kernel's bars against the plain version
 # and against the narrow kernel, km_z, zl and pk bit-identical to it.
+
+
+def test_envelope_body_refuses_outside_its_domain_on_card(cuda):
+    """ballistics(envelope=True) raises for w2 > 1 on the card as on the
+    CPU, and launches nothing."""
+    tp = design.true_peak_ballistics(2000)
+    t = torch.full((2, 16), 0.5, device=cuda)
+    z = torch.zeros(2, device=cuda)
+    n0 = ballistics_core.envelope_launch_count
+    with pytest.raises(ValueError, match="envelope body needs"):
+        ballistics_core.ballistics(t, z, z, z, z, w1=tp.w1, w2=tp.w2, w3=tp.w3,
+                                   track_peak=True, envelope=True)
+    assert ballistics_core.envelope_launch_count == n0
 
 
 def _env_rows(N, T, seed, nonfinite):

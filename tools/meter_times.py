@@ -23,6 +23,7 @@ FS, B, N = 48000, 256, 60
 STEREO = {"dBTPstereo": (B, 2), "BBCstereo": (B, 2), "dr14stereo": (B,),
           "TPnRMSstereo": (B,), "spectr30stereo": (B,)}
 MONO_INPUT = {"bitmeter", "SigDistHist"}
+DOWNMIX = {"spectr30stereo"}  # update(..., stereo=True): the [B, 2, T] block downmixed
 
 
 def main():
@@ -49,14 +50,15 @@ def main():
         m = meters_lv2_torch.create(name, FS)
         batch = STEREO.get(name, (B,))
         xs = [b[:, 0] if name in MONO_INPUT else b for b in blocks]
+        kw = {"stereo": True} if name in DOWNMIX else {}
         runs, enqueue = [], []
         for _ in range(2):
-            st = m.update(m.init(batch, device=dev), xs[0])  # warm
+            st = m.update(m.init(batch, device=dev), xs[0], **kw)  # warm
             st = m.init(batch, device=dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(N):
-                st = m.update(st, xs[i % len(xs)])
+                st = m.update(st, xs[i % len(xs)], **kw)
             enqueue.append(time.perf_counter() - t0)
             out = m.read(st)[0]
             torch.cuda.synchronize()
@@ -64,7 +66,7 @@ def main():
             runs.append(time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(10):
-                st = m.update(st, xs[i % len(xs)])
+                st = m.update(st, xs[i % len(xs)], **kw)
             torch.cuda.synchronize()
         dev_us = sum(e.self_device_time_total for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 10
