@@ -8,10 +8,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases, each printed on its own line; any failure exits non-zero:
 
   1. device   the card, its power limit, fp32 matmul precision settings;
-  2. build    nvcc builds every kernel from meters_lv2_torch/csrc, and
-              spectrum_fused's body before its Hopper redesign
-              (tools/spectrum_probe.py's parent variant, the yardstick of
-              phase 6) beside them;
+  2. build    nvcc builds every kernel from meters_lv2_torch/csrc;
   3. kernels  each kernel (r128_fused, ballistics, truepeak_fused,
               bitmeter_stats, spectrum_fused, surround_fused, stft_fused)
               against its plain PyTorch version on the same card tensors
@@ -21,10 +18,12 @@ Phases, each printed on its own line; any failure exits non-zero:
               block edges, in the history and side by side; stft_fused
               in all three modes at [256, 2, 56192] and at W=256 hop
               1764, raw mode also against torch.fft.rfft, and with a NaN
-              and a +Inf sample); then the three variants: the
-              ballistics envelope body against its plain version and the
-              serial kernel (N=512 T=48000 with and without track_peak,
-              and adversarial rows), r128_fused's seg mode at [256, 2,
+              and a +Inf sample); the ballistics envelope body (the PPM
+              meters' default) against its plain version and the serial
+              kernel (N=512 T=48000 with and without track_peak,
+              adversarial rows, and 600 rows of T=1000 with NaN and +-Inf
+              at the edges of blocks and groups); then the two variants:
+              r128_fused's seg mode at [256, 2,
               48000] with random offsets at fragm 2400 and 2205 against
               its plain version and the kernel's full-rate mode, and the
               surround wide layout against the narrow kernel and the plain
@@ -32,9 +31,11 @@ Phases, each printed on its own line; any failure exits non-zero:
   4. main     at the bench operating point (B=256 streams of 48 kHz
               stereo, 12 flat 1 s blocks): EbuR128Meter, then dBTPstereo,
               BBCstereo, DINstereo, BBCM6, VUstereo, K20stereo and COR,
-              each with the kernel launch counts checked and streams 0-3
-              held against the same meter on CPU tensors; dBTPstereo also
-              in 1000-sample blocks (a 104-sample tail per update); then
+              each with the kernel launch counts checked (the PPM meters
+              on the ballistics envelope kernel) and streams 0-3 held
+              against the same meter on CPU tensors; dBTPstereo also in
+              1000-sample blocks (a 104-sample tail per update, on the
+              serial ballistics kernel); then
               the statistics meters dr14stereo, TPnRMSstereo, SigDistHist
               (both modes) and bitmeter (channel 0) over 60 blocks (20 DR
               windows), created and initialised with no device argument,
@@ -52,14 +53,13 @@ Phases, each printed on its own line; any failure exits non-zero:
               goniometer (oversample 4), created and initialised with no
               device argument, over the 12 blocks, stft_fused launched once
               per phase wheel and stereoscope update, streams 0-3 of every
-              update held against CPU runs; then the variants: BBCstereo
-              and BBCM6 over the 12 blocks with METERS_TORCH_BALLISTICS_ENV=1
-              against the serial run, R128's fragment sums through
-              r128_fused's seg mode over the 12 blocks (carried state and
-              offsets) against the full-rate kernel + shifted_segments, and
-              surround5 and surround8 with METERS_TORCH_SURROUND_WIDE=1
-              against the narrow run, each variant's launches counted;
-              then 60 x 1 s carried through both truepeak_fused bodies at
+              update held against CPU runs; then the variants: R128's
+              fragment sums through r128_fused's seg mode over the 12
+              blocks (carried state and offsets) against the full-rate
+              kernel + shifted_segments, and surround5 and surround8 with
+              METERS_TORCH_SURROUND_WIDE=1 against the narrow run, each
+              variant's launches counted; then 60 x 1 s carried through
+              both truepeak_fused bodies and both ballistics bodies at
               N=512 (the largest relative difference of z1, z2 and m), 60 x
               1 s at B=8 carried through spectrum_fused and its plain
               version (each its own state; val, peak and zf of every call
@@ -72,24 +72,24 @@ Phases, each printed on its own line; any failure exits non-zero:
               statistics fixtures (DR-14, TP+RMS, sigdist, bit meter) and
               the five spectrum fixtures (strict and in-band worst), the
               four surround fixtures and the 14 analyzer fixtures (STFT,
-              phase wheel, stereoscope, goniometer); then the DIN, BBC and
-              BBC M-6 fixtures through the envelope body and the surround
-              fixtures through the wide layout;
-  6. times    each kernel vs its plain version (spectrum_fused also
-              alternated with the parent body), truepeak_fused's envelope
+              phase wheel, stereoscope, goniometer), the DIN, BBC and BBC
+              M-6 fixtures on the envelope body (its launches counted);
+              then the surround fixtures through the wide layout;
+  6. times    each kernel vs its plain version, truepeak_fused's envelope
               and serial bodies alternated at N=512 and N=8,192, the
-              ballistics kernel alone
-              at 4,224 to 33,792 rows, and main-path x-realtime (R128 over
-              120 blocks, down from 240 to keep the whole run well inside
-              its time limit; dBTP, BBC, BBC M-6, the statistics meters and
+              ballistics kernel's envelope and serial bodies alternated at
+              N=512 and at 4,224 to 33,792 rows, and main-path x-realtime
+              (R128 over 120 blocks, down from 240 to keep the whole run
+              well inside its time limit; dBTP, BBC, DIN, BBC M-6, the
+              statistics meters and
               spectr30stereo, surround5 and surround8 over 60; for the
               surround meters also the host's enqueue time and the device
               time of an update under torch.profiler); stft_fused also
               against torch.fft.rfft of the windowed frames, and the three
               analyzers' x-realtime over 60 blocks with their enqueue and
-              device time per update; each variant against its default
-              (the envelope also over the row sweep), and BBCstereo,
-              surround5 and surround8 x-realtime with each variant on.
+              device time per update; each variant against its default,
+              and surround5 and surround8 x-realtime with the wide layout
+              on.
 
 The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
 sample on the CPU) go to worker processes at the start and are collected in
@@ -845,11 +845,8 @@ def spectrum_golden(dev):
 
 def spectrum_times(dev, blocks_dev, gpu):
     """spectrum_fused against its plain version at the main-path shape
-    (plain, kernel, kernel, plain), then against its body before the
-    redesign (tools/spectrum_probe.py's parent variant, as built by
-    ``--build parent``: parent, kernel, kernel, parent), and
-    spectr30stereo's x-realtime over 60 blocks at B=256.  Returns (kernel
-    ms, plain ms, parent ms)."""
+    (plain, kernel, kernel, plain), and spectr30stereo's x-realtime over 60
+    blocks at B=256.  Returns (kernel ms, plain ms)."""
     import torch
 
     import meters_lv2_torch
@@ -866,24 +863,9 @@ def spectrum_times(dev, blocks_dev, gpu):
             ms_k.append(cuda_ms(lambda: spectrum_fused.fused_core(xd, z0, v0, om, sop), 10))
         else:
             ms_p.append(cuda_ms(lambda: spectrum_fused.fused_core_reference(xd, z0, v0, om, sop), 3))
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import spectrum_probe
-
-    parent = spectrum_probe.fused_launcher(spectrum_probe.OUT / "libparent.so")
-    w = sop.tensors(dev)
-    ms_k2, ms_par = [], []
-    for which in "pkkp":
-        if which == "k":
-            ms_k2.append(cuda_ms(lambda: spectrum_fused.fused_core(xd, z0, v0, om, sop), 10))
-        else:
-            ms_par.append(cuda_ms(lambda: spectrum_probe.launch_fused(parent, xd, z0, v0, om, w),
-                                  10))
-    ms = (statistics.mean(ms_k), statistics.mean(ms_p), statistics.mean(ms_par))
+    ms = (statistics.mean(ms_k), statistics.mean(ms_p))
     print(f"phase times: spectrum_fused kernel {ms[0]:.4f} ms (medians {ms_k}), plain version "
           f"{ms[1]:.4f} ms (medians {ms_p}) at B={B_MAIN} T={FS} [{gpu}]")
-    print(f"phase times: spectrum_fused yardstick: kernel {statistics.mean(ms_k2):.4f} ms "
-          f"(medians {ms_k2}), the body before its redesign {ms[2]:.4f} ms (medians {ms_par}), "
-          f"alternated parent, kernel, kernel, parent at B={B_MAIN} T={FS} [{gpu}]")
     del xd, z0, v0
     runs = []
     for _ in range(2):
@@ -1113,9 +1095,9 @@ def surround_golden(dev):
 
 
 # the __global__ functions of meters_lv2_torch/csrc, as the profiler names them
-PORT_KERNELS = ("r128_fused_kernel", "ballistics_kernel", "truepeak_fused_kernel",
-                "bitmeter_stats_kernel", "spectrum_fused_kernel", "surround_fused_kernel",
-                "stft_fused_kernel")
+PORT_KERNELS = ("r128_fused_kernel", "ballistics_kernel", "ballistics_env_kernel",
+                "truepeak_fused_kernel", "bitmeter_stats_kernel", "spectrum_fused_kernel",
+                "surround_fused_kernel", "stft_fused_kernel")
 
 
 def device_us_per_update(m, st, xs, n=10):
@@ -1451,10 +1433,10 @@ def analyzers_times(dev, blocks3, gpu):
     return ms
 
 
-# -- the variants: the ballistics envelope body, R128 seg mode and the
-# surround wide layout.  The switches are unset for every default path;
-# env_set turns one on for a phase.
-ENV_VAR, WIDE_VAR = "METERS_TORCH_BALLISTICS_ENV", "METERS_TORCH_SURROUND_WIDE"
+# -- the ballistics envelope body (the PPM meters' default) and the
+# variants: R128 seg mode and the surround wide layout.  The wide switch is
+# unset for every default path; env_set turns it on for a phase.
+WIDE_VAR = "METERS_TORCH_SURROUND_WIDE"
 # envelope: bit-exact to its plain version (the same fp32 operations in its
 # order, none contracted); against the serial kernel z1, z2 and m within
 # ENV_RTOL relative plus ENV_ATOL (tests/test_ballistics_envelope.py), p
@@ -1516,11 +1498,14 @@ def compare_envelope(got, ref, serial, tag):
 
 def envelope_kernel_cases(dev, w):
     """The envelope kernel against its plain version and the serial kernel:
-    the main-path shape N=512 T=48000 with and without track_peak, and
-    adversarial rows (silence, a spike, NaN, +Inf first and second in its
-    group, a NaN and a +Inf in one group in both orders, a NaN carried max).
-    Returns (max abs error vs the plain version at the main-path shape (0.0:
-    bit-exact), the plain version's ms of one main-path call, breaches)."""
+    the main-path shape N=512 T=48000 with and without track_peak (4 rows a
+    CTA), adversarial rows (silence, a spike, NaN, +Inf first and second in
+    its group, a NaN and a +Inf in one group in both orders, a NaN carried
+    max), and 600 rows (16 rows a CTA, the last CTA partial) of T=1000 (a
+    partial last block) with NaN and +-Inf at the edges of blocks and
+    groups and a NaN carried z1.  Returns (max abs error vs the plain
+    version at the main-path shape (0.0: bit-exact), the plain version's ms
+    of one main-path call, breaches)."""
     import torch
 
     from meters_lv2_torch.ops import ballistics_core
@@ -1539,11 +1524,19 @@ def envelope_kernel_cases(dev, w):
     ta[7, 40], ta[7, 42] = np.inf, np.nan
     sta = [np.abs(0.3 * rng.standard_normal(8)).astype(np.float32) for _ in range(4)]
     sta[2][0] = np.nan
+    te = np.abs(0.3 * rng.standard_normal((600, 1000))).astype(np.float32)
+    for r, i, v in [(0, 127, np.nan), (1, 128, np.inf), (2, 255, -np.inf), (3, 256, np.nan),
+                    (4, 43, np.inf), (5, 44, np.nan), (6, 996, np.inf), (7, 999, np.nan),
+                    (599, 0, np.inf), (598, 1, np.inf)]:
+        te[r, i] = v
+    ste = [np.abs(0.3 * rng.standard_normal(600)).astype(np.float32) for _ in range(4)]
+    ste[0][9] = np.nan
     failures, main_err, plain_ms = [], 0.0, None
     for tag, tt, s, tp in [
         (f"main-path shape N={N} T={T} track_peak=False", t, st, False),
         (f"main-path shape N={N} T={T} track_peak=True", t, st, True),
         ("adversarial rows N=8 T=1024 track_peak=True", ta, sta, True),
+        ("edges of blocks and groups N=600 T=1000 track_peak=True", te, ste, True),
     ]:
         args = [torch.as_tensor(a, device=dev) for a in [tt, *s]]
         got = ballistics_core.ballistics(*args, **w, track_peak=tp, envelope=True)
@@ -1556,7 +1549,7 @@ def envelope_kernel_cases(dev, w):
             main_err = max([main_err] + [finite_err(a, b) for a, b in zip(got, ref)])
             if not tp:
                 plain_ms = ms
-        elif not all(bool(torch.isposinf(v[5:]).all()) for v in got[:3]):
+        elif tt is ta and not all(bool(torch.isposinf(v[5:]).all()) for v in got[:3]):
             failures.append("ballistics envelope: rows 5-7 (+Inf, NaN with +Inf) not +Inf")
     return main_err, plain_ms, failures
 
@@ -1650,17 +1643,15 @@ def wide_kernel_cases(dev):
 
 
 def variants_main(dev, blocks_dev, reset_counts, all_counts):
-    """The main path with each variant on: BBCstereo and BBCM6 over the 12
-    blocks with the envelope, held against the serial run on the card;
-    R128's fragment sums in seg mode (fused_core with the carried state and
-    offset over the 12 blocks), held against the full-rate kernel and
-    shifted_segments; surround5 and surround8 over the 12 blocks in the wide
-    layout, held against the narrow run.  Launch counts checked.  Returns
-    (envelope, seg, wide) launches."""
+    """The main path with each variant on: R128's fragment sums in seg mode
+    (fused_core with the carried state and offset over the 12 blocks), held
+    against the full-rate kernel and shifted_segments; surround5 and
+    surround8 over the 12 blocks in the wide layout, held against the
+    narrow run.  Launch counts checked.  Returns (seg, wide) launches."""
     import torch
 
     import meters_lv2_torch
-    from meters_lv2_torch.ops import ballistics_core, r128_fused, segment, surround_fused
+    from meters_lv2_torch.ops import r128_fused, segment, surround_fused
 
     def run(m, init, xs, var, flag):
         with env_set(var, flag):
@@ -1672,29 +1663,7 @@ def variants_main(dev, blocks_dev, reset_counts, all_counts):
             torch.cuda.synchronize()
         return out, all_counts()
 
-    env_launches = wide_launches = 0
-    for name, batch in (("BBCstereo", (B_MAIN, 2)), ("BBCM6", (B_MAIN,))):
-        m = meters_lv2_torch.create(name, FS)
-        init = lambda: m.init(batch, device=dev)  # noqa: E731
-        out_s, _ = run(m, init, blocks_dev, ENV_VAR, "0")
-        out_e, cnt = run(m, init, blocks_dev, ENV_VAR, "1")
-        n = ballistics_core.envelope_launch_count
-        if n != len(blocks_dev) or sum(cnt) != n:
-            fail(f"main path {name} with the envelope: envelope launches {n}, counts {cnt}")
-        env_launches += n
-        worst = 0.0
-        for k, v in out_e.items():
-            ref = out_s[k]
-            if v.shape != batch or not bool(torch.isfinite(v).all()):
-                fail(f"main path {name} with the envelope: readout {k} not finite of shape {batch}")
-            d = (v - ref).abs()
-            worst = max(worst, (d / (ref.abs() + 1e-30)).max().item())
-            if bool((d > ENV_RTOL * ref.abs() + ENV_ATOL).any()):
-                fail(f"main path {name}: envelope vs serial readout {k} off by {d.max().item()}")
-        print(f"phase main: ok: {name} {len(blocks_dev)} x 1 s blocks with {ENV_VAR}=1, envelope "
-              f"launches {n} (serial 0); readouts vs the serial run on the card: worst relative "
-              f"{worst:.3g} (bar {ENV_RTOL} + {ENV_ATOL})")
-
+    wide_launches = 0
     # R128's fragment sums in seg mode, the stream's state carried block to block
     meter = meters_lv2_torch.create("EBUr128", FS, nchan=2)
     op, gains = meter.sys.op(128), meter.gains
@@ -1751,35 +1720,15 @@ def variants_main(dev, blocks_dev, reset_counts, all_counts):
               f"{n} (narrow 0); vs the narrow run on the card: level/peak {d_db:.3g} dB, "
               f"correlation {d_cor:.3g}")
         del xs
-    return env_launches, seg_launches, wide_launches
+    return seg_launches, wide_launches
 
 
 def variants_golden(dev):
-    """Every fixture of the families whose ballistics reach the envelope
-    (DIN, BBC and BBC M-6: iec1*, iec2*, msppm*) through it, and the four
-    surround fixtures through the wide layout, on the card."""
-    from signals import make_signal
-    from test_torch_golden_ballistics import FAMILIES, run_family
+    """The four surround fixtures through the wide layout, on the card."""
     import test_torch_golden_surround as gsur
 
-    from meters_lv2_torch.ops import ballistics_core, surround_fused
+    from meters_lv2_torch.ops import surround_fused
 
-    gw = []
-    ballistics_core.launch_count = ballistics_core.envelope_launch_count = 0
-    with env_set(ENV_VAR):
-        for prefix in FAMILIES:
-            if not prefix.startswith(("iec1", "iec2", "msppm")):
-                continue
-            try:
-                worst, n = run_family(prefix, make_signal, device=dev)
-            except AssertionError as e:
-                fail(f"golden {prefix} with the envelope: {e}")
-            gw.append(f"{prefix} {n} values worst {worst:.3g} dB")
-    n_env, n_ser = ballistics_core.envelope_launch_count, ballistics_core.launch_count
-    if not n_env or n_ser:
-        fail(f"golden with the envelope: envelope launches {n_env}, serial {n_ser}")
-    print(f"phase golden: ok: with {ENV_VAR}=1 ({n_env} envelope launches, 0 serial): "
-          f"{'; '.join(gw)}")
     gw = []
     surround_fused.launch_count = surround_fused.wide_launch_count = 0
     with env_set(WIDE_VAR):
@@ -1797,7 +1746,12 @@ def variants_golden(dev):
           f"0 narrow): {'; '.join(gw)}")
 
 
-N_CARRIED = 60  # 1 s blocks carried through both truepeak_fused bodies and spectrum_fused
+N_CARRIED = 60  # 1 s blocks carried through both bodies of ballistics and truepeak_fused,
+# and through spectrum_fused
+# the ballistics row sweep of phase times on 132 SMs: 4,224 rows (32 an SM),
+# 8,448 (one wave of the envelope's 16-row CTAs, 4 an SM), 12,672 (one wave
+# of the serial body's 32-row CTAs, 3 an SM) and 33,792 (waves of both)
+BALLISTICS_ROWS = (4224, 8448, 12672, 33792)
 
 
 def truepeak_carried(dev, blocks_dev, w_tp):
@@ -1840,6 +1794,48 @@ def truepeak_carried(dev, blocks_dev, w_tp):
     print(f"phase main: ok: truepeak_fused {N_CARRIED} x 1 s carried through both bodies at "
           f"N={N} T={FS}: largest relative difference envelope vs serial " + ", ".join(
               f"{k} {v:.3g}" for k, v in worst.items()) + f" (bar {TPK_RTOL}); hist' identical")
+
+
+def ballistics_carried(dev, blocks_dev, w_ppm):
+    """N_CARRIED x 1 s of the main path's rectified blocks at N=512 rows
+    through both ballistics kernels, z1 and z2 carried and m restarted each
+    call (as the meter runs them): the largest relative difference between
+    the envelope and the serial body of z1 and z2 after every call and of
+    each call's m must stay within ENV_RTOL relative plus ENV_ATOL, with the
+    same non-finite values.  The envelope's rounding must not drift away
+    from the serial chain's over a minute."""
+    import torch
+
+    from meters_lv2_torch.ops import ballistics_core
+
+    N = 2 * B_MAIN
+    zero = torch.zeros(N, device=dev)
+    carry = {env: (zero, zero) for env in (False, True)}
+    worst = {"z1": 0.0, "z2": 0.0, "m": 0.0}
+    breaches = []
+    for i in range(N_CARRIED):
+        t = blocks_dev[i % len(blocks_dev)].reshape(N, FS).abs()
+        out = {}
+        for env in (False, True):
+            out[env] = ballistics_core.ballistics(t, *carry[env], zero, zero, **w_ppm,
+                                                  track_peak=False, envelope=env)
+            carry[env] = out[env][:2]
+        for name, a, b in zip(worst, out[True], out[False]):
+            if not same_nonfinite(a, b):
+                fail(f"ballistics carried, call {i}: {name} non-finite values differ")
+            f = torch.isfinite(b)
+            d, ref = (a - b).abs()[f], b.abs()[f]
+            if d.numel():
+                worst[name] = max(worst[name], (d / ref.clamp_min(1e-30)).max().item())
+                if bool((d > ENV_RTOL * ref + ENV_ATOL).any()):
+                    breaches.append(f"call {i} {name} {d.max().item():.3g}")
+    torch.cuda.synchronize()
+    if breaches:
+        fail(f"ballistics carried {N_CARRIED} s: envelope vs serial off the bar: {breaches[:5]}")
+    print(f"phase main: ok: ballistics {N_CARRIED} x 1 s carried through both bodies at N={N} "
+          f"T={FS}: largest relative difference envelope vs serial " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items()) + f" (bar {ENV_RTOL} + {ENV_ATOL})")
+    return worst
 
 
 def fp32_pinned(dev, blocks3):
@@ -1890,6 +1886,32 @@ def fp32_pinned(dev, blocks3):
           "bit for bit; the caller's setting restored")
 
 
+def ballistics_body_times(dev, gpu, w_ppm, t_main):
+    """The ballistics kernel's two bodies at T=48000 on t_main (the main
+    path's N=512 rectified rows, 10 launches a median) and on 4,224 to
+    33,792 rows of 0.3 U(0, 1) samples (5 a median), timed serial, envelope,
+    envelope, serial; returns {N: (envelope ms, serial ms)}."""
+    import torch
+
+    from meters_lv2_torch.ops import ballistics_core
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t_big = torch.rand((max(BALLISTICS_ROWS), FS), generator=gen, device=dev) * 0.3
+    res = {}
+    for N in (t_main.shape[0], *BALLISTICS_ROWS):
+        t = t_main if N == t_main.shape[0] else t_big[:N]
+        zs = [torch.zeros(N, device=dev) for _ in range(4)]
+        ms = {False: [], True: []}
+        for env in (False, True, True, False):
+            ms[env].append(cuda_ms(lambda: ballistics_core.ballistics(
+                t, *zs, **w_ppm, track_peak=False, envelope=env), 10 if t is t_main else 5))
+        res[N] = (statistics.mean(ms[True]), statistics.mean(ms[False]))
+        print(f"phase times: ballistics at N={N} T={FS}: envelope {res[N][0]:.4f} ms (medians "
+              f"{ms[True]}), serial {res[N][1]:.4f} ms (medians {ms[False]}), alternated [{gpu}]")
+    del t_big
+    return res
+
+
 def truepeak_body_times(dev, gpu, w_tp, x_main):
     """truepeak_fused's two bodies at T=48000 on x_main (the main path's
     N=512 rows) and on 8,192 rows of 0.1 N(0, 1) samples, timed serial,
@@ -1937,32 +1959,20 @@ def x_realtime(m, init, xs, n):
     return B_MAIN * n / min(runs), min(runs) / n * 1e3, [round(r, 4) for r in runs]
 
 
-def variants_times(dev, blocks_dev, gpu, t_abs, zs, w_ppm, sur_plain):
+def variants_times(dev, blocks_dev, gpu, sur_plain):
     """The variants against their defaults in this call, alternating
-    (default, variant, variant, default): the envelope against the serial
-    kernel at N=512; seg mode against the full-rate kernel followed by
-    shifted_segments, and its plain version, at [256, 2, 48000]; the wide
-    layout against the narrow one at C=5 and C=8 (the plain version's ms
-    are the narrow phase's, the same function); BBCstereo, surround5 and
-    surround8 x-realtime with each variant on.  Returns {name: (ms, plain
-    ms)} for the kernels JSON line."""
+    (default, variant, variant, default): seg mode against the full-rate
+    kernel followed by shifted_segments, and its plain version, at [256, 2,
+    48000]; the wide layout against the narrow one at C=5 and C=8 (the
+    plain version's ms are the narrow phase's, the same function);
+    surround5 and surround8 x-realtime with the wide layout on.  Returns
+    {name: (ms, plain ms)} for the kernels JSON line."""
     import torch
 
     import meters_lv2_torch
-    from meters_lv2_torch.ops import ballistics_core, design, lti, r128_fused, segment
-    from meters_lv2_torch.ops import surround_fused
+    from meters_lv2_torch.ops import design, lti, r128_fused, segment, surround_fused
 
     out = {}
-    ser, env = [], []
-    for w in "seeS":
-        fn = (lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False,
-                                                 envelope=w == "e"))
-        (env if w == "e" else ser).append(cuda_ms(fn, 10))
-    out["envelope"] = statistics.mean(env)
-    print(f"phase times: ballistics envelope kernel {out['envelope']:.4f} ms (medians {env}), "
-          f"serial kernel {statistics.mean(ser):.4f} ms (medians {ser}) at N={2 * B_MAIN} "
-          f"T={FS} [{gpu}]")
-
     rng = np.random.default_rng(13)
     x = torch.as_tensor((0.3 * rng.standard_normal((B_MAIN, 2, FS))).astype(np.float32),
                         device=dev)
@@ -2006,13 +2016,6 @@ def variants_times(dev, blocks_dev, gpu, t_abs, zs, w_ppm, sur_plain):
               f"T={FS} [{gpu}]")
         del args
 
-    m = meters_lv2_torch.create("BBCstereo", FS)
-    for flag in ("0", "1"):
-        with env_set(ENV_VAR, flag):
-            xrt, ms, runs = x_realtime(m, lambda: m.init((B_MAIN, 2), device=dev), blocks_dev,
-                                       N_STATS)
-        print(f"phase times: BBCstereo {ENV_VAR}={flag} {xrt:.1f} x-realtime ({ms:.3f} ms per "
-              f"update; runs {runs} s for {N_STATS} x 1 s blocks at B={B_MAIN}) [{gpu}]")
     for name in ("surround5", "surround8"):
         m = meters_lv2_torch.create(name, FS)
         xs = surround_blocks(m.nchan, blocks_dev)
@@ -2045,14 +2048,6 @@ def stop_workers():
         POOL.terminate()
         POOL.join()
         POOL = None
-    if PARENT_BUILD is not None and PARENT_BUILD.poll() is None:
-        PARENT_BUILD.kill()
-        PARENT_BUILD.wait()
-
-
-# nvcc of spectrum_fused's parent body (tools/spectrum_probe.py --build
-# parent), the yardstick of phase 6, run beside the package's build
-PARENT_BUILD = None
 
 
 def main():
@@ -2064,9 +2059,8 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test runs the "
              "port on an NVIDIA GPU and does not run on the CPU")
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
-    for var in (ENV_VAR, WIDE_VAR):  # the default paths run with the switches unset
-        if os.environ.pop(var, None) is not None:
-            print(f"chip_smoke: {var} unset for the default paths")
+    if os.environ.pop(WIDE_VAR, None) is not None:  # the default paths run without it
+        print(f"chip_smoke: {WIDE_VAR} unset for the default paths")
     try:
         import meters_lv2_torch
         from meters_lv2_torch.ops import (
@@ -2090,12 +2084,6 @@ def main():
     dev = torch.device("cuda", 0)
 
     # -- 2. build -----------------------------------------------------------
-    # spectrum_fused's parent body (the yardstick of phase 6) builds beside
-    # the package: the probe's own build, one more nvcc process, started first
-    global PARENT_BUILD
-    PARENT_BUILD = subprocess.Popen(
-        [sys.executable, os.path.join(ROOT, "tools", "spectrum_probe.py"), "--build", "parent"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
     build.build()
     build.kernels()
@@ -2320,20 +2308,22 @@ def main():
                 truepeak_fused.serial_launch_count)
 
     def counts():
-        return ballistics_core.launch_count, truepeak_fused.launch_count
+        return (ballistics_core.launch_count, ballistics_core.envelope_launch_count,
+                truepeak_fused.launch_count)
 
     blocks3 = [b.reshape(B_MAIN, 2, FS) for b in blocks]  # [B, C, T] views
     blocks_dev = [torch.as_tensor(b, device=dev) for b in blocks3]
-    ball_launches = tp_launches = 0
-    # meter, state batch, expected (ballistics, truepeak) launches per update
+    ball_launches = env_launches = tp_launches = 0
+    # meter, state batch, expected (ballistics serial, ballistics envelope,
+    # truepeak) launches per update: the PPM meters run the envelope body
     for name, batch, per_update in [
-        ("dBTPstereo", (B_MAIN, 2), (0, 1)),
-        ("BBCstereo", (B_MAIN, 2), (1, 0)),
-        ("DINstereo", (B_MAIN, 2), (1, 0)),
-        ("BBCM6", (B_MAIN,), (1, 0)),  # mid and side in one stacked launch
-        ("VUstereo", (B_MAIN, 2), (0, 0)),
-        ("K20stereo", (B_MAIN, 2), (0, 0)),
-        ("COR", (B_MAIN,), (0, 0)),
+        ("dBTPstereo", (B_MAIN, 2), (0, 0, 1)),
+        ("BBCstereo", (B_MAIN, 2), (0, 1, 0)),
+        ("DINstereo", (B_MAIN, 2), (0, 1, 0)),
+        ("BBCM6", (B_MAIN,), (0, 1, 0)),  # mid and side in one stacked launch
+        ("VUstereo", (B_MAIN, 2), (0, 0, 0)),
+        ("K20stereo", (B_MAIN, 2), (0, 0, 0)),
+        ("COR", (B_MAIN,), (0, 0, 0)),
     ]:
         m = meters_lv2_torch.create(name, FS)
         st = m.init(batch, device=dev)
@@ -2345,10 +2335,11 @@ def main():
         got = counts()
         want = tuple(n * len(blocks) for n in per_update)
         if got != want or r128_fused.launch_count or truepeak_fused.serial_launch_count:
-            fail(f"main path {name}: (ballistics, truepeak) launches {got}, expected {want}; "
-                 f"serial truepeak {truepeak_fused.serial_launch_count}")
+            fail(f"main path {name}: (ballistics serial, ballistics envelope, truepeak) launches "
+                 f"{got}, expected {want}; serial truepeak {truepeak_fused.serial_launch_count}")
         ball_launches += got[0]
-        tp_launches += got[1]
+        env_launches += got[1]
+        tp_launches += got[2]
         out = readouts(out)
         for k, v in out.items():
             if v.shape != batch or not bool(torch.isfinite(v).all()):
@@ -2366,12 +2357,14 @@ def main():
                 fail(f"main path {name} {k}: card vs CPU differ by {diffs[k]}")
         first = ", ".join(f"{k}[0] {v.reshape(-1)[0].item():.6f}" for k, v in out.items())
         print(f"phase main: ok: {name} {len(blocks)} x 1 s blocks at state batch {batch}, "
-              f"(ballistics, truepeak) launches {got}; {first}; streams 0-3 vs CPU: "
+              f"(ballistics serial, ballistics envelope, truepeak) launches {got}; {first}; "
+              f"streams 0-3 vs CPU: "
               + ", ".join(f"{k} {d:.3g}" for k, d in diffs.items())
               + (" abs" if name == "COR" else " dB"))
 
     # dBTP in 1000-sample blocks: 896 samples through truepeak_fused and a
-    # 104-sample tail through upsample4 + the ballistics kernel per update
+    # 104-sample tail through upsample4 + the serial ballistics kernel per
+    # update (the JAX package's tail is its serial scan)
     m = meters_lv2_torch.create("dBTPstereo", FS)
     x4 = blocks3[0][:4]
     st, st_c = m.init((4, 2), device=dev), m.init((4, 2), device="cpu")
@@ -2384,16 +2377,18 @@ def main():
     got = counts()
     for i in range(FS // 1000):
         st_c = m.update(st_c, torch.as_tensor(x4[..., i * 1000:(i + 1) * 1000]))
-    if got != (FS // 1000, FS // 1000) or truepeak_fused.serial_launch_count:
-        fail(f"dBTP 1000-sample blocks: (ballistics, truepeak) launches {got}")
+    if got != (FS // 1000, 0, FS // 1000) or truepeak_fused.serial_launch_count:
+        fail(f"dBTP 1000-sample blocks: (ballistics serial, ballistics envelope, truepeak) "
+             f"launches {got}")
     ball_launches += got[0]
-    tp_launches += got[1]
+    tp_launches += got[2]
     out_c, _ = m.read(st_c)
     d = max(level_db_diff(out[k].cpu(), out_c[k]) for k in out_c)
     if not d < TOL_DB:
         fail(f"dBTP 1000-sample blocks: card vs CPU differ by {d} dB")
     print(f"phase main: ok: dBTPstereo {FS // 1000} x 1000-sample blocks (104-sample tail) "
-          f"on streams 0-3, (ballistics, truepeak) launches {got}; vs CPU {d:.3g} dB")
+          f"on streams 0-3, (ballistics serial, ballistics envelope, truepeak) launches {got}; "
+          f"vs CPU {d:.3g} dB")
 
     # the statistics meters, created and initialised with no device
     # argument: their state must land on the card
@@ -2413,9 +2408,9 @@ def main():
                 st12 = st
         out, st = m.read(st)
         torch.cuda.synchronize()
-        got = (ballistics_core.launch_count, truepeak_fused.launch_count,
-               bitmeter_stats.launch_count, r128_fused.launch_count,
-               truepeak_fused.serial_launch_count)
+        got = (ballistics_core.launch_count + ballistics_core.envelope_launch_count,
+               truepeak_fused.launch_count, bitmeter_stats.launch_count,
+               r128_fused.launch_count, truepeak_fused.serial_launch_count)
         want = (0, N_STATS if layout == "stereo" else 0, N_STATS if name == "bitmeter" else 0, 0, 0)
         if got != want:
             fail(f"main path {name}: (ballistics, truepeak, bitmeter, r128, serial truepeak) "
@@ -2466,10 +2461,10 @@ def main():
     marks.append(("main surround", time.perf_counter()))
     stft_launches = analyzers_main(dev, blocks3, reset_counts, all_counts)
     marks.append(("main analyzers", time.perf_counter()))
-    env_launches, seg_launches, wide_launches = variants_main(
-        dev, blocks_dev, reset_counts, all_counts)
+    seg_launches, wide_launches = variants_main(dev, blocks_dev, reset_counts, all_counts)
     marks.append(("main variants", time.perf_counter()))
     truepeak_carried(dev, blocks_dev, w_tp)
+    ballistics_carried(dev, blocks_dev, w_ppm)
     spectrum_carried(dev)
     spectrum_nonfinite_meter(dev)
     fp32_pinned(dev, blocks3)
@@ -2486,14 +2481,18 @@ def main():
     from test_torch_golden_ballistics import FAMILIES, run_family
 
     gw = []
+    ballistics_core.launch_count = ballistics_core.envelope_launch_count = 0
     for prefix in FAMILIES:
         try:
             worst, n = run_family(prefix, make_signal, device=dev)
         except AssertionError as e:
             fail(f"golden {prefix}: {e}")
         gw.append(f"{prefix} {n} values worst {worst:.3g}")
-    print(f"phase golden: ok: ballistics families, whole fixtures (dB; stcorr absolute): "
-          f"{'; '.join(gw)}")
+    n_env = ballistics_core.envelope_launch_count
+    if not n_env:  # DIN, BBC and BBC M-6 (iec1*, iec2*, msppm*) run the envelope
+        fail("golden ballistics families: no envelope launch")
+    print(f"phase golden: ok: ballistics families, whole fixtures (dB; stcorr absolute; "
+          f"{n_env} envelope launches, {ballistics_core.launch_count} serial): {'; '.join(gw)}")
     import test_torch_golden_stats as gs
 
     gw = []
@@ -2558,21 +2557,19 @@ def main():
           f"{[round(r, 4) for r in runs]} s for {n_chunks} x 1 s blocks at B={B_MAIN}, "
           f"{min(runs) / n_chunks * 1e3:.3f} ms per update) [{gpu}]")
 
-
     # ballistics and truepeak_fused at the main-path shape; the plain
     # versions' one call was timed in phase kernels
     t_abs = torch.abs(blocks_dev[0]).reshape(2 * B_MAIN, FS)
     x_tp = blocks_dev[0].reshape(2 * B_MAIN, FS)
-    zs = on_card(*[0.5 * v for v in states(2 * B_MAIN)])
     times = {}
-    k1 = cuda_ms(lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False), 10)
-    k2 = cuda_ms(lambda: ballistics_core.ballistics(t_abs, *zs, **w_ppm, track_peak=False), 10)
-    times["ballistics"] = (statistics.mean([k1, k2]), plain_ms["ballistics"])
+    ball_body_ms = ballistics_body_times(dev, gpu, w_ppm, t_abs)
+    times["ballistics"] = (ball_body_ms[2 * B_MAIN][1], plain_ms["ballistics"])
+    times["ballistics_envelope"] = (ball_body_ms[2 * B_MAIN][0], env_plain_ms)
     tp_body_ms = truepeak_body_times(dev, gpu, w_tp, x_tp)
     times["truepeak_fused"] = (tp_body_ms[2 * B_MAIN][0], plain_ms["truepeak_fused"])
-    for name in ("ballistics", "truepeak_fused"):
+    for name in ("ballistics", "ballistics_envelope", "truepeak_fused"):
         print(f"phase times: {name} kernel {times[name][0]:.4f} ms, plain version "
-              f"{plain_ms[name]:.1f} ms (one call, in phase kernels) at "
+              f"{times[name][1]:.1f} ms (one call, in phase kernels) at "
               f"N={2 * B_MAIN} T={FS} [{gpu}]")
     # bitmeter_stats at the main-path shape: plain, kernel, kernel, plain
     x_bit = torch.as_tensor(np.random.default_rng(0).standard_normal(
@@ -2587,21 +2584,9 @@ def main():
     print(f"phase times: bitmeter_stats kernel {times['bitmeter_stats'][0]:.4f} ms (medians "
           f"{ms_k}), plain version {times['bitmeter_stats'][1]:.4f} ms (medians {ms_p}) at "
           f"N={B_MAIN} T={FS} [{gpu}]")
-    # the ballistics kernel as rows grow: three 32-row CTAs fit on an SM,
-    # so up to 132 * 96 = 12,672 rows run in one wave
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t_big = torch.rand((33792, FS), generator=gen, device=dev) * 0.3
-    scale = []
-    for N in (4224, 12672, 33792):
-        zn = [torch.zeros(N, device=dev) for _ in range(4)]
-        ms = [cuda_ms(lambda: ballistics_core.ballistics(
-            t_big[:N], *zn, **w_ppm, track_peak=False, envelope=env), 5) for env in (False, True)]
-        scale.append(f"N={N} {ms[0]:.4f} ms (envelope {ms[1]:.4f} ms)")
-    del t_big
-    print(f"phase times: ballistics kernel alone at T={FS}: {', '.join(scale)} [{gpu}]")
     n_chunks = 60
     for name, batch in [("dBTPstereo", (B_MAIN, 2)), ("BBCstereo", (B_MAIN, 2)),
-                        ("BBCM6", (B_MAIN,))]:
+                        ("DINstereo", (B_MAIN, 2)), ("BBCM6", (B_MAIN,))]:
         m = meters_lv2_torch.create(name, FS)
         runs, enqueue = [], []
         for _ in range(2):
@@ -2619,7 +2604,8 @@ def main():
         print(f"phase times: {name} {B_MAIN * n_chunks / min(runs):.1f} x-realtime (best of "
               f"{len(runs)}: {[round(r, 4) for r in runs]} s for {n_chunks} x 1 s blocks at "
               f"B={B_MAIN}, {min(runs) / n_chunks * 1e3:.3f} ms per update); "
-              + stats_profile(m, st, blocks_dev, enqueue, n_chunks, name == "dBTPstereo")
+              + stats_profile(m, st, blocks_dev, enqueue, n_chunks,
+                              name in ("dBTPstereo", "BBCstereo"))
               + f" [{gpu}]")
     for name, kw, layout in STATS:
         m = meters_lv2_torch.create(name, FS, **kw)
@@ -2643,9 +2629,6 @@ def main():
               f"B={B_MAIN}, {min(runs) / N_STATS * 1e3:.3f} ms per update); "
               + stats_profile(m, st, xs, enqueue, N_STATS, layout == "stereo") + f" [{gpu}]")
 
-    out = PARENT_BUILD.communicate()[0]
-    if PARENT_BUILD.returncode:
-        fail(f"the spectrum_fused parent body did not build:\n{out[-3000:]}")
     times["spectrum_fused"] = spectrum_times(dev, blocks_dev, gpu)
     marks.append(("times before surround", time.perf_counter()))
     sur_ms = surround_times(dev, blocks3, gpu)
@@ -2653,8 +2636,7 @@ def main():
     marks.append(("times surround", time.perf_counter()))
     times["stft_fused"] = analyzers_times(dev, blocks3, gpu)
     marks.append(("times analyzers", time.perf_counter()))
-    var_times = variants_times(dev, blocks_dev, gpu, t_abs, zs, w_ppm,
-                               {C: sur_ms[C][1] for C in sur_ms})
+    var_times = variants_times(dev, blocks_dev, gpu, {C: sur_ms[C][1] for C in sur_ms})
     marks.append(("times variants", time.perf_counter()))
     print("phase times: seconds per phase: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
@@ -2691,8 +2673,9 @@ def main():
             4 * B_MAIN * C * FS + 4 * B_MAIN * C * (2 * 3 + 1) + 4 * B_MAIN * 4 * 3,
             B_MAIN * FS * (SUR_OPS_CHAN * C + 4 * sur_ops_pair(C)))
     bounds["surround_fused"] = bounds["surround_fused C=8"]
-    # the variants compute the same functions: the envelope the ballistics
-    # function, the wide layout the surround function; seg mode writes
+    # the envelope body and the variants compute the same functions: the
+    # envelope the ballistics function, the wide layout the surround
+    # function; seg mode writes
     # n_slots sums a stream instead of p and adds each p sample into one
     bounds["ballistics envelope"] = bounds["ballistics"]
     bounds["r128_fused seg mode"] = bound(4 * n_r128 + 4 * B_MAIN * N_SLOTS,
@@ -2733,11 +2716,11 @@ def main():
     }, {
         "name": "ballistics",
         "route": "cuda",
-        "source": "meters_lv2_torch/csrc/ballistics.cu",
+        "source": "meters_lv2_torch/csrc/ballistics.cu",  # the serial body
         "replaces": "meters_lv2_tpu/ops/pallas_ballistics.py:133",
-        "launches": ball_launches,
+        "launches": ball_launches,  # dBTP's tails
         "max_abs_err": ball_err,  # all outputs at the main-path shape
-        "ms": times["ballistics"][0],
+        "ms": times["ballistics"][0],  # alternated with the envelope body
         "plain_ms": times["ballistics"][1],
         "bound_ms": bounds["ballistics"][0],
         "bound_by": bounds["ballistics"][1],
@@ -2781,7 +2764,6 @@ def main():
         "bound_ms": bounds["spectrum_fused"][0],
         "bound_by": bounds["spectrum_fused"][1],
         "library_ms": None,
-        "parent_ms": times["spectrum_fused"][2],  # the body before its redesign, alternated
     }, {
         "name": "surround_fused",
         "route": "cuda",
@@ -2811,15 +2793,17 @@ def main():
     }, {
         "name": "ballistics_envelope",
         "route": "cuda",
-        "source": "meters_lv2_torch/csrc/ballistics.cu",  # group_env_step: ballistics_step.cuh
+        "source": "meters_lv2_torch/csrc/ballistics.cu",  # the envelope body, the PPM default
         "replaces": "meters_lv2_tpu/ops/pallas_ballistics.py:61",
-        "launches": env_launches,  # BBCstereo and BBCM6 with METERS_TORCH_BALLISTICS_ENV=1
+        "launches": env_launches,  # BBCstereo, DINstereo and BBCM6 on the default path
         "max_abs_err": env_err,  # at N=512 vs plain version (bit-exact); vs serial in phase kernels
-        "ms": var_times["envelope"],
-        "plain_ms": env_plain_ms,
+        "ms": times["ballistics_envelope"][0],  # alternated with the serial body
+        "plain_ms": times["ballistics_envelope"][1],
         "bound_ms": bounds["ballistics envelope"][0],
         "bound_by": bounds["ballistics envelope"][1],
         "library_ms": None,
+        # {rows: [envelope ms, serial ms]}, alternated
+        "ms_by_rows": {str(N): list(v) for N, v in ball_body_ms.items()},
     }, {
         "name": "r128_fused_seg",
         "route": "cuda",

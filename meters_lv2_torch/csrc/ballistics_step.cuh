@@ -1,6 +1,6 @@
-// One 4-sample group of the PPM / true-peak attack-release recurrence,
-// shared by ballistics.cu and truepeak_fused.cu so that both hold the one
-// bit-exact form of it.
+// One 4-sample group of the PPM / true-peak attack-release recurrence, in
+// its serial form and its envelope form, shared by ballistics.cu and
+// truepeak_fused.cu so that both hold the one bit-exact form of each.
 //
 //   z1 *= w3, z2 *= w3; per sample t of the group:
 //     z1 = t > z1 ? z1 + w1*(t - z1) : z1   (same for z2 with w2)
@@ -52,18 +52,20 @@ __device__ __forceinline__ void group_step(float4 v, float w1, float w2,
 // step is z' = max(z, (1-w) z + w t), so with d = w3 z a group is exactly
 //   z' = max(d, d + (b_k - d c_k)),  k = 1..4,  c_k = 1 - (1-w)^k,
 // where b_k, the best result of k attacks on a zero state, comes from a
-// max-plus DP over the group's samples that never reads z: it overlaps the
-// carried chain, which shrinks to the multiply d, a multiply, two adds and
-// a 4-deep max.  A DP attack is the serial step b + w (t - b), so the DP
-// rounds as the serial chain does; c_k comes from the host, a float64
-// value rounded once (a float32 a^k would bias the decay of every group by
-// up to half an ulp, which the recurrence multiplies by about 1 / w).
-// A NaN sample enters as -inf and cannot attack.  fmaxf drops a NaN
-// candidate (-inf meeting +inf, either way round), so a NaN next to a
-// +Inf, a +Inf after the group's first sample, or a +Inf state meeting a
-// b_k of -inf all give the serial body's answer; a NaN z makes every
-// candidate NaN and stays NaN.  Every step is written with __fmul_rn /
-// __fadd_rn / __fsub_rn, so nothing is contracted into an FMA.
+// max-plus DP over the group's samples that never reads z
+// (env_intercepts): it runs on other warps than the carried chain
+// (env_carry_tree) in both ballistics.cu and truepeak_fused.cu, and the
+// chain shrinks to the multiply d, a multiply, two adds and a 3-deep max.
+// A DP attack is the serial step b + w (t - b), so the DP rounds as the
+// serial chain does; c_k comes from the host, a float64 value rounded once
+// (a float32 a^k would bias the decay of every group by up to half an ulp,
+// which the recurrence multiplies by about 1 / w).  A NaN sample enters as
+// -inf and cannot attack.  fmaxf drops a NaN candidate (-inf meeting +inf,
+// either way round), so a NaN next to a +Inf, a +Inf after the group's
+// first sample, or a +Inf state meeting a b_k of -inf all give the serial
+// body's answer; a NaN z makes every candidate NaN and stays NaN.  Every
+// step is written with __fmul_rn / __fadd_rn / __fsub_rn, so nothing is
+// contracted into an FMA.
 
 struct EnvCoeffs {
   float w, c1, c2, c3, c4;  // w and c_k = 1 - (1 - w)^k
@@ -83,10 +85,9 @@ __device__ __forceinline__ float env_cand(float d, float b, float c) {
   return __fadd_rn(d, __fsub_rn(b, __fmul_rn(d, c)));
 }
 
-// The DP half of group_env: b_1..b_4 of one group from its samples ts (NaN
-// already -inf) and w.  It never reads the carried state, so it may run
-// anywhere ahead of the carried half (truepeak_fused.cu runs it on other
-// warps than the chain).
+// The DP half: b_1..b_4 of one group from its samples ts (NaN already
+// -inf) and w.  It never reads the carried state, so it may run anywhere
+// ahead of the carried half.
 __device__ __forceinline__ float4 env_intercepts(const float ts[4], float w) {
   const float ninf = -__int_as_float(0x7f800000);
   // the DP in the plain version's order; b3 and b4 before samples 2 and 3
@@ -104,33 +105,18 @@ __device__ __forceinline__ float4 env_intercepts(const float ts[4], float w) {
   return make_float4(b1, b2, b3, b4);
 }
 
-// The carried half of group_env: z' = max(d, d + (b_k - d c_k)), d = w3 z,
-// the max taken in the plain version's order.
-__device__ __forceinline__ float env_carry(float z, float w3, const EnvCoeffs& k,
-                                           float4 b) {
+// The carried half: z' = max(d, d + (b_k - d c_k)), d = w3 z.  The plain
+// version takes the max as a sequential torch.fmax chain; fmaxf drops NaN
+// and is associative and commutative on everything the chain meets, so
+// this tree gives the same value with one level less on the chain.
+__device__ __forceinline__ float env_carry_tree(float z, float w3, const EnvCoeffs& k,
+                                                float4 b) {
   const float d = __fmul_rn(z, w3);
-  float out = fmaxf(d, env_cand(d, b.x, k.c1));
-  out = fmaxf(out, env_cand(d, b.y, k.c2));
-  out = fmaxf(out, env_cand(d, b.z, k.c3));
-  return fmaxf(out, env_cand(d, b.w, k.c4));
-}
-
-__device__ __forceinline__ float group_env(float z, float w3, const EnvCoeffs& k,
-                                           const float ts[4]) {
-  return env_carry(z, w3, k, env_intercepts(ts, k.w));
-}
-
-template <bool kTrackPeak>
-__device__ __forceinline__ void group_env_step(float4 v, const EnvCoeffs& k1,
-                                               const EnvCoeffs& k2, float w3,
-                                               float& z1, float& z2, float& m,
-                                               float& p) {
-  const float ts[4] = {nan_to_ninf(v.x), nan_to_ninf(v.y), nan_to_ninf(v.z),
-                       nan_to_ninf(v.w)};
-  z1 = group_env(z1, w3, k1, ts);
-  z2 = group_env(z2, w3, k2, ts);
-  if (kTrackPeak) p = max_nan(p, fmaxf(fmaxf(ts[0], ts[1]), fmaxf(ts[2], ts[3])));
-  m = max_nan(m, __fadd_rn(z1, z2));
+  const float c1 = env_cand(d, b.x, k.c1);
+  const float c2 = env_cand(d, b.y, k.c2);
+  const float c3 = env_cand(d, b.z, k.c3);
+  const float c4 = env_cand(d, b.w, k.c4);
+  return fmaxf(fmaxf(fmaxf(d, c1), c2), fmaxf(c3, c4));
 }
 
 }  // namespace ballistics

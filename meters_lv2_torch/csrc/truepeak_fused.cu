@@ -84,6 +84,7 @@
 #include <cstddef>
 
 #include "ballistics_step.cuh"
+#include "mbarrier.cuh"
 #include "upsample4.cuh"
 
 namespace {
@@ -113,31 +114,6 @@ struct Args {
   float *z1out, *z2out, *mout, *pout, *hist_out;
   float taps[kPhases * kTaps];  // [4, 48] row-major
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned ready = 0;
-  do {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
-        " selp.u32 %0, 1, 0, p; }"
-        : "=r"(ready)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!ready);
-}
 
 // Moves the block held in nxt behind the halo in win, issues the loads of
 // the next block into nxt (they land while this block is worked on), and
@@ -258,17 +234,7 @@ __device__ __forceinline__ void serial_body(const Args& a) {
 // envelope body: 4 producer warps (FIR + DP), 1 consumer warp (the chains)
 // ---------------------------------------------------------------------------
 
-// The carried half of the envelope (ballistics_step.cuh::env_carry) with
-// the max as a tree: one level less on the chain, the same value.
-__device__ __forceinline__ float env_carry_tree(float z, float w3,
-                                                const ballistics::EnvCoeffs& k, float4 b) {
-  const float d = __fmul_rn(z, w3);
-  const float c1 = ballistics::env_cand(d, b.x, k.c1);
-  const float c2 = ballistics::env_cand(d, b.y, k.c2);
-  const float c3 = ballistics::env_cand(d, b.z, k.c3);
-  const float c4 = ballistics::env_cand(d, b.w, k.c4);
-  return fmaxf(fmaxf(fmaxf(d, c1), c2), fmaxf(c3, c4));
-}
+using ballistics::env_carry_tree;  // the carried half, as a fmaxf tree
 
 constexpr int kAhead = 4;  // consumer: groups read ahead of the chain
 

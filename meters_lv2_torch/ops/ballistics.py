@@ -19,7 +19,6 @@ restart after a read, the ``g`` scale and the denormal offsets.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
@@ -30,6 +29,13 @@ from .design import BallisticsCoeffs
 _NH = 47  # resampler history
 _CLAMP = (0.0, 20.0)  # entry clamp of z1, z2 (iec2ppmdsp.cc:49-50)
 _DENORMAL = 1e-10  # PPM exit offset (iec2ppmdsp.cc:76-77)
+# The meters run the envelope body on batches of up to this many rows, one
+# wave of its 16-row CTAs on an H100 (132 SMs x 4 CTAs x 16 rows), and the
+# serial body on larger ones.  chip_smoke.py's row sweep at T=48000 on an
+# H100 80GB HBM3 at 700 W, envelope against serial: 0.458 / 0.829 ms at
+# 4,224 rows, 0.828 / 0.903 at 8,448, 1.071 / 0.912 at 12,672, 2.654 /
+# 2.423 at 33,792 (PERF.md).
+ENVELOPE_MAX_ROWS = 8448
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,14 +61,16 @@ def _run_ballistics(coeffs: BallisticsCoeffs, t, z1, z2, m, p):
     tracking) may be None.  The batch is flattened to rows for
     ballistics_core.ballistics.
 
-    ``METERS_TORCH_BALLISTICS_ENV=1``, read on each call, selects the
-    group-envelope body (the JAX package's METERS_TPU_BALLISTICS_ENV)
-    where it holds (``ballistics_core.envelope_ok``: true peak below
-    fs = 4,300 Hz runs the serial body whatever the variable says); the
-    default ``0`` runs the serial body."""
+    The group-envelope body runs wherever it holds
+    (``ballistics_core.envelope_ok``: DIN, NOR, BBC, EBU, M-6 at every
+    rate, the unfused true-peak update from fs = 4,300 Hz on) on up to
+    ``ENVELOPE_MAX_ROWS`` rows; the serial body elsewhere.  The choice is
+    the same on the CPU as on the card."""
     *batch, T = t.shape
     track_peak = p is not None
     rows = t.reshape(-1, T).contiguous()
+    envelope = (rows.shape[0] <= ENVELOPE_MAX_ROWS
+                and ballistics_core.envelope_ok(coeffs.w1, coeffs.w2))
 
     def flat(v):
         return v.reshape(-1).contiguous()
@@ -71,8 +79,7 @@ def _run_ballistics(coeffs: BallisticsCoeffs, t, z1, z2, m, p):
         rows, flat(z1), flat(z2), flat(m),
         flat(p if track_peak else torch.zeros_like(m)),
         w1=coeffs.w1, w2=coeffs.w2, w3=coeffs.w3, track_peak=track_peak,
-        envelope=(os.environ.get("METERS_TORCH_BALLISTICS_ENV", "0") == "1"
-                  and ballistics_core.envelope_ok(coeffs.w1, coeffs.w2)),
+        envelope=envelope,
     )
     z1, z2, m, p = (v.reshape(batch) for v in (z1, z2, m, p))
     return z1, z2, m, (p if track_peak else None)
@@ -193,8 +200,7 @@ def true_peak_update_fused(
         z1, z2, m, p, hf = truepeak_fused.truepeak_fused(xf[:, :Tm], hf, z1, z2, m, p, **w,
                                                          body=body)
     if Tm < T:  # the tail: plain oversampling, chained states, the serial
-        # body whatever METERS_TORCH_BALLISTICS_ENV says (the JAX package's
-        # tail is its serial _scan_ballistics)
+        # body (the JAX package's tail is its serial _scan_ballistics)
         up, hf = resample.upsample4(xf[:, Tm:], hf)
         z1, z2, m, p = ballistics_core.ballistics(
             up.abs(), z1, z2, m, p, **w, track_peak=True

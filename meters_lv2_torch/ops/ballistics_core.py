@@ -165,7 +165,9 @@ def ballistics_envelope_reference(
     track_peak: bool,
 ):
     """Plain PyTorch version of the envelope body, the same float32
-    operations in the same order as the kernel's ``group_env_step``.
+    operations in the same order as the kernel's (ballistics_step.cuh:
+    ``env_intercepts`` on its producer warps, ``env_carry_tree`` on its
+    consumer warp; the tree gives the value of the fmax chain below).
 
     The intercepts b_k do not depend on the carried state, so they are
     computed for every group at once; only the state update loops over the

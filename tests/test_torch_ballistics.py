@@ -252,12 +252,19 @@ def test_ppm_and_true_peak_ops_match_jax():
 
 def test_unfused_true_peak_below_4300_hz_with_the_envelope_switch(monkeypatch):
     """At fs = 2000, true peak's w2 = 4300 / fs passes 1, outside the
-    envelope body's domain: with METERS_TORCH_BALLISTICS_ENV=1 the unfused
-    true_peak_update still runs the serial body and reads as the JAX
+    envelope body's domain: the unfused true_peak_update, whose default is
+    the envelope, runs the serial body there and reads as the JAX
     package's (within 0.01 dB)."""
     from meters_lv2_torch.ops import ballistics as t_bal
 
-    monkeypatch.setenv("METERS_TORCH_BALLISTICS_ENV", "1")
+    bodies = []
+    ballistics = ballistics_core.ballistics
+
+    def spy(*a, envelope=False, **k):
+        bodies.append(envelope)
+        return ballistics(*a, envelope=envelope, **k)
+
+    monkeypatch.setattr(ballistics_core, "ballistics", spy)
     tp_t, tp_j = t_design.true_peak_ballistics(2000), j_design.true_peak_ballistics(2000)
     assert tp_t.w2 > 1 and not ballistics_core.envelope_ok(tp_t.w1, tp_t.w2)
     rng = np.random.default_rng(21)
@@ -267,6 +274,7 @@ def test_unfused_true_peak_below_4300_hz_with_the_envelope_switch(monkeypatch):
         x = np.abs(rng.standard_normal((3, 512)) * (1.0 if i % 2 else 0.1)).astype(np.float32)
         tt = t_bal.true_peak_update(tp_t, tt, torch.from_numpy(x))
         jt = j_bal.true_peak_update(tp_j, jt, jnp.asarray(x))
+    assert bodies == [False] * 4
     tm, tpk, _ = t_bal.true_peak_read(tt)
     jm, jpk, _ = j_bal.true_peak_read(jt)
     for got, want in ((tm.numpy(), np.asarray(jm)), (tpk.numpy(), np.asarray(jpk))):

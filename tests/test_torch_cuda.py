@@ -182,14 +182,15 @@ def test_truepeak_kernel_matches_plain(cuda, N, T, nonfinite, body):
 
 
 def test_ballistics_meters_on_card_match_cpu(cuda):
-    """dBTP with a 104-sample tail (truepeak kernel + ballistics kernel),
-    BBC M-6 with a per-stream S20 tensor, and the 0-dim reference-level gain
-    on card readouts."""
+    """dBTP with a 104-sample tail (truepeak kernel + the serial ballistics
+    kernel), BBC M-6 (the envelope kernel) with a per-stream S20 tensor,
+    and the 0-dim reference-level gain on card readouts."""
     rng = np.random.default_rng(8)
     tp, m6 = meters_lv2_torch.create("dBTPstereo", 48000), meters_lv2_torch.create("BBCM6", 48000)
     tg, tc = tp.init((2, 2), device=cuda), tp.init((2, 2), device="cpu")
     mg, mc = m6.init((2,), device=cuda), m6.init((2,), device="cpu")
     nt, nb = truepeak_fused.launch_count, ballistics_core.launch_count
+    ne = ballistics_core.envelope_launch_count
     for i in range(6):
         x = (0.2 * rng.standard_normal((2, 2, 1000))).astype(np.float32)
         s20 = np.array([i % 2 == 0, True])
@@ -198,7 +199,8 @@ def test_ballistics_meters_on_card_match_cpu(cuda):
         mg = m6.update(mg, torch.as_tensor(x, device=cuda), torch.as_tensor(s20, device=cuda))
         mc = m6.update(mc, torch.from_numpy(x), torch.from_numpy(s20))
     assert truepeak_fused.launch_count == nt + 6
-    assert ballistics_core.launch_count == nb + 12  # dBTP tails + one M-6 launch each
+    assert ballistics_core.launch_count == nb + 6  # dBTP's tails: the serial body
+    assert ballistics_core.envelope_launch_count == ne + 6  # one M-6 launch each
     for (og, _), (oc, _) in ((tp.read(tg), tp.read(tc)), (m6.read(mg), m6.read(mc))):
         for k in oc:
             db = (20 * torch.log10(og[k].cpu() / oc[k])).abs().max().item()
@@ -693,11 +695,22 @@ def _env_rows(N, T, seed, nonfinite):
     rng = np.random.default_rng(seed)
     t = np.abs(0.3 * rng.standard_normal((N, T))).astype(np.float32)
     st = [np.abs(0.3 * rng.standard_normal(N)).astype(np.float32) for _ in range(4)]
-    if nonfinite:  # NaN, +Inf, a NaN and a +Inf in one group (both orders)
-        t[0, 17], t[1, 301], t[2, 5] = np.nan, np.inf, np.nan
-        t[3, 40], t[3, 41], t[4, 40], t[4, 42] = np.nan, np.inf, np.inf, np.nan
-        t[5, 0:64] = 0.0
-        st[2][3] = np.nan
+    if nonfinite:
+        # (row, sample) taken mod (N, T): NaN, +Inf, a NaN and a +Inf in one
+        # group (both orders), a silent run; NaN and +-Inf at the edges of
+        # 128-sample blocks (127, 128, 255) and of groups (43, 44), +Inf
+        # first and second in its group, the last sample NaN; a NaN carried
+        # z2 and max
+        marks = [(0, 17, np.nan), (1, 301, np.inf), (2, 5, np.nan), (3, 40, np.nan),
+                 (3, 41, np.inf), (4, 40, np.inf), (4, 42, np.nan), (6, 127, np.nan),
+                 (6, 128, np.nan), (7, 127, np.inf), (8, 128, -np.inf), (9, 255, np.nan),
+                 (10, 43, np.nan), (10, 44, -np.inf), (11, 48, np.inf), (12, 49, np.inf),
+                 (13, T - 1, np.nan)]
+        t[5 % N, 0:64] = 0.0
+        for r, i, v in marks:
+            t[r % N, i % T] = v
+        st[2][3 % N] = np.nan
+        st[1][14 % N] = np.nan
     return t, st
 
 
@@ -705,8 +718,22 @@ def _env_rows(N, T, seed, nonfinite):
     (5, 1024, False, False),
     (37, 1000, True, True),
     (40, 4096, True, False),
+    (1, 4, True, False),       # one group
+    (1, 48000, False, True),
+    (3, 64, True, True),       # half a block
+    (3, 1000, False, False),
+    (17, 1000, True, True),    # a CTA's rows partly filled
+    (17, 48000, False, False),
+    (512, 48000, True, False),  # the main-path shape
+    (512, 1000, True, True),
+    (529, 1000, True, True),   # past the few-row launch: 16 rows a CTA, the last partial
+    (600, 4, False, False),
+    (600, 48000, True, True),
 ])
 def test_ballistics_envelope_kernel_matches_plain(cuda, N, T, track_peak, nonfinite):
+    """The envelope kernel bit-exact to its plain version, and within the
+    envelope's bar of the serial kernel, at the row counts of both launches
+    (4 and 16 rows a CTA), with whole and partial CTAs and blocks."""
     t, st = _env_rows(N, T, N + T, nonfinite)
     c = design.iec2_ppm(48000)
     args = [torch.as_tensor(a, device=cuda) for a in [t] + st]
@@ -777,30 +804,37 @@ def test_surround_wide_kernel_matches_plain_and_narrow(cuda, C, B, T, pairs, non
 
 
 def test_variant_switches_reach_the_meters_on_card(cuda, monkeypatch):
-    """METERS_TORCH_BALLISTICS_ENV=1 sends BBCstereo's and BBCM6's ballistics
-    to the envelope kernel, METERS_TORCH_SURROUND_WIDE=1 surround5's bulk to
-    the wide kernel; readouts within the variants' bars of the default."""
+    """BBCstereo's and BBCM6's ballistics run the envelope kernel by
+    default, and the serial kernel where ``envelope_ok`` fails (forced
+    here), readouts within the envelope's bar of each other;
+    METERS_TORCH_SURROUND_WIDE=1 sends surround5's bulk to the wide kernel,
+    readouts within its bars of the default."""
     rng = np.random.default_rng(21)
     x = torch.as_tensor((0.2 * rng.standard_normal((3, 2, 4800))).astype(np.float32), device=cuda)
     xs = torch.as_tensor((0.2 * rng.standard_normal((3, 5, 4800))).astype(np.float32), device=cuda)
-    for name, var, count, data in [
-        ("BBCstereo", "METERS_TORCH_BALLISTICS_ENV", "envelope_launch_count", x),
-        ("BBCM6", "METERS_TORCH_BALLISTICS_ENV", "envelope_launch_count", x),
-        ("surround5", "METERS_TORCH_SURROUND_WIDE", "wide_launch_count", xs),
+    for name, count, data in [
+        ("BBCstereo", "envelope_launch_count", x),
+        ("BBCM6", "envelope_launch_count", x),
+        ("surround5", "wide_launch_count", xs),
     ]:
         mod = surround_fused if name.startswith("surround") else ballistics_core
         m = meters_lv2_torch.create(name, 48000)
         outs = []
-        for flag in ("0", "1"):
-            monkeypatch.setenv(var, flag)
+        for variant in (False, True):
+            if mod is surround_fused:
+                monkeypatch.setenv("METERS_TORCH_SURROUND_WIDE", "1" if variant else "0")
+            else:  # the default is the envelope; outside its domain, serial
+                monkeypatch.setattr(ballistics_core, "envelope_ok",
+                                    (lambda w1, w2: True) if variant else (lambda w1, w2: False))
             c0 = getattr(mod, count)
             st = m.init((3, 2) if name == "BBCstereo" else (3,), device=cuda)
             for i in range(4):
                 st = m.update(st, data[..., i * 1200:(i + 1) * 1200])
             out = m.read(st)[0]
             torch.cuda.synchronize()
-            assert getattr(mod, count) == c0 + (4 if flag == "1" else 0), name
+            assert getattr(mod, count) == c0 + (4 if variant else 0), name
             outs.append(out if isinstance(out, dict) else {"value": out})
+        monkeypatch.undo()
         for k in outs[0]:
             a, b = outs[1][k].cpu().double(), outs[0][k].cpu().double()
             if k == "correlation":

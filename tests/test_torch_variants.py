@@ -207,33 +207,41 @@ def test_envelope_tracks_the_serial_body_over_a_second():
 
 @pytest.mark.parametrize("name", ["BBCstereo", "BBCM6", "DINmono"])
 def test_envelope_switch_reaches_the_meters(monkeypatch, name):
-    """METERS_TORCH_BALLISTICS_ENV=1, read on each call, sends the meter's
-    ballistics through the envelope's plain version on the CPU; the readouts
-    stay within the envelope's bar of the default (serial) run."""
-    calls = []
-    env_ref = ballistics_core.ballistics_envelope_reference
+    """The meter's ballistics run the envelope body by default: on the CPU
+    its plain version, once per update, and never the serial one.  Forced
+    outside the envelope's domain (``envelope_ok`` false) they run the
+    serial body instead, and the readouts of the two runs stay within the
+    envelope's bar of each other."""
+    calls = {"envelope": 0, "serial": 0}
+    refs = {"envelope": ballistics_core.ballistics_envelope_reference,
+            "serial": ballistics_core.ballistics_reference}
 
-    def counted(*a, **k):
-        calls.append(1)
-        return env_ref(*a, **k)
+    def counted(body):
+        def run(*a, **k):
+            calls[body] += 1
+            return refs[body](*a, **k)
+        return run
 
-    monkeypatch.setattr(ballistics_core, "ballistics_envelope_reference", counted)
+    monkeypatch.setattr(ballistics_core, "ballistics_envelope_reference", counted("envelope"))
+    monkeypatch.setattr(ballistics_core, "ballistics_reference", counted("serial"))
     m = mt.create(name, 48000)
     shape = (3, 2, 1000) if name in ("BBCstereo", "BBCM6") else (3, 1000)
     x = torch.from_numpy(
         (0.3 * np.random.default_rng(9).standard_normal(shape)).astype(np.float32))
     batch = shape[:-1] if name == "BBCstereo" else shape[:1]
     outs = []
-    for env in ("0", "1"):
-        monkeypatch.setenv("METERS_TORCH_BALLISTICS_ENV", env)
+    for default in (True, False):
+        if not default:
+            monkeypatch.setattr(ballistics_core, "envelope_ok", lambda w1, w2: False)
+        calls.update(envelope=0, serial=0)
         st = m.init(batch, device="cpu")
         for i in range(2):
             st = m.update(st, x[..., i * 500:(i + 1) * 500])
         out, _ = m.read(st)
         outs.append(out if isinstance(out, dict) else {"value": out})
-        assert len(calls) == (0 if env == "0" else 2)
+        assert calls == ({"envelope": 2, "serial": 0} if default else {"envelope": 0, "serial": 2})
     for k in outs[0]:
-        np.testing.assert_allclose(outs[1][k].numpy(), outs[0][k].numpy(), rtol=ENV_RTOL,
+        np.testing.assert_allclose(outs[0][k].numpy(), outs[1][k].numpy(), rtol=ENV_RTOL,
                                    atol=ENV_ATOL, err_msg=k)
 
 

@@ -20,7 +20,7 @@ import sys
 import time
 
 FS, B, N = 48000, 256, 60
-STEREO = {"dBTPstereo": (B, 2), "BBCstereo": (B, 2), "dr14stereo": (B,),
+STEREO = {"dBTPstereo": (B, 2), "BBCstereo": (B, 2), "DINstereo": (B, 2), "dr14stereo": (B,),
           "TPnRMSstereo": (B,), "spectr30stereo": (B,)}
 MONO_INPUT = {"bitmeter", "SigDistHist"}
 DOWNMIX = {"spectr30stereo"}  # update(..., stereo=True): the [B, 2, T] block downmixed
