@@ -59,6 +59,8 @@ Phases, each printed on its own line; any failure exits non-zero:
               kernel + shifted_segments, and surround5 and surround8 with
               METERS_TORCH_SURROUND_WIDE=1 against the narrow run, each
               variant's launches counted; then 60 x 1 s carried through
+              r128_fused and its plain version at B=256 in both modes
+              (every call at the bars of phase kernels), through
               both truepeak_fused bodies and both ballistics bodies at
               N=512 (the largest relative difference of z1, z2 and m), 60 x
               1 s at B=8 carried through spectrum_fused and its plain
@@ -80,7 +82,8 @@ Phases, each printed on its own line; any failure exits non-zero:
               ballistics kernel's envelope and serial bodies alternated at
               N=512 and at 4,224 to 33,792 rows, and main-path x-realtime
               (R128 over 120 blocks, down from 240 to keep the whole run
-              well inside its time limit; dBTP, BBC, DIN, BBC M-6, the
+              well inside its time limit, with the update's host
+              enqueue and torch.profiler device time; dBTP, BBC, DIN, BBC M-6, the
               statistics meters and
               spectr30stereo, surround5 and surround8 over 60; for the
               surround meters also the host's enqueue time and the device
@@ -109,6 +112,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1747,7 +1751,7 @@ def variants_golden(dev):
 
 
 N_CARRIED = 60  # 1 s blocks carried through both bodies of ballistics and truepeak_fused,
-# and through spectrum_fused
+# and through spectrum_fused and r128_fused
 # the ballistics row sweep of phase times on 132 SMs: 4,224 rows (32 an SM),
 # 8,448 (one wave of the envelope's 16-row CTAs, 4 an SM), 12,672 (one wave
 # of the serial body's 32-row CTAs, 3 an SM) and 33,792 (waves of both)
@@ -1794,6 +1798,63 @@ def truepeak_carried(dev, blocks_dev, w_tp):
     print(f"phase main: ok: truepeak_fused {N_CARRIED} x 1 s carried through both bodies at "
           f"N={N} T={FS}: largest relative difference envelope vs serial " + ", ".join(
               f"{k} {v:.3g}" for k, v in worst.items()) + f" (bar {TPK_RTOL}); hist' identical")
+
+
+def r128_carried(dev, blocks_dev):
+    """N_CARRIED x 1 s of the main-path blocks at B=256 C=2 through
+    r128_fused and its plain version, each carrying its own K-weighting
+    state and history: p, z, hist and tpmax of every call held at the bars
+    of phase kernels (P_RTOL + P_FLOOR, Z_SCALE, bit-exact, TP_RTOL), and
+    seg mode on the same carried inputs, its fragment offset advancing by
+    a block a call, at the seg bar (2e-6 relative), with z, hist and tpmax
+    bit-identical to the full-rate call.  The kernel's summation order must
+    not drift away from the plain version's over a minute."""
+    import torch
+
+    from meters_lv2_torch.ops import design, lti, r128_fused
+
+    op = lti.LTISystem(*design.k_weighting_state_space(FS)).op(128)
+    gains = r128_fused.gains_f32(design.R128_CHAN_GAIN[:2])
+    zero = (torch.zeros((B_MAIN, 2, 4), device=dev), torch.zeros((B_MAIN, 2, 47), device=dev))
+    carry = {"kernel": zero, "plain": zero}
+    off0 = np.random.default_rng(5).integers(0, FRAGM, B_MAIN)
+    worst = {"p": 0.0, "z": 0.0, "tpmax": 0.0, "seg": 0.0}
+    for i in range(N_CARRIED):
+        x = blocks_dev[i % len(blocks_dev)]
+        off = torch.as_tensor(((off0 + i * FS) % FRAGM).astype(np.int32), device=dev)
+        seg_kw = dict(off=off, fragm=FRAGM, n_slots=N_SLOTS)
+        out, seg = {}, {}
+        for name, fn in (("kernel", r128_fused.fused_core),
+                         ("plain", r128_fused.fused_core_reference)):
+            z, h = carry[name]
+            out[name] = fn(x, z, h, gains, op)
+            seg[name] = fn(x, z, h, gains, op, **seg_kw)
+            carry[name] = out[name][1], out[name][2]
+        got, ref = out["kernel"], out["plain"]
+        if not all(same_nonfinite(a, b) for a, b in zip(got, ref)):
+            fail(f"r128_fused carried, call {i}: non-finite values differ")
+        if not torch.equal(got[2], ref[2]):
+            fail(f"r128_fused carried, call {i}: hist not bit-exact")
+        if not all(same_bits(a, b) for a, b in zip(seg["kernel"][1:], got[1:])):
+            fail(f"r128_fused carried, call {i}: seg mode's z, hist, tpmax differ from full rate")
+        p, pr = got[0].double(), ref[0].double()
+        z, zr = got[1].double(), ref[1].double()
+        t, tr = got[3].double(), ref[3].double()
+        sg, sr = seg["kernel"][0].double(), seg["plain"][0].double()
+        ratios = {
+            "p": ((p - pr).abs() / (P_RTOL * pr.abs() + P_FLOOR * pr.abs().max())).max().item(),
+            "z": ((z - zr).abs() / (Z_SCALE * zr.abs().amax(dim=(0, 1)))).max().item(),
+            "tpmax": ((t - tr).abs() / (TP_RTOL * tr.abs())).max().item(),
+            "seg": ((sg - sr).abs() / (2e-6 * sr.abs() + 1e-9)).max().item(),
+        }
+        for k, v in ratios.items():
+            worst[k] = max(worst[k], v)
+        if not all(v <= 1.0 for v in ratios.values()):
+            fail(f"r128_fused carried, call {i}: error over its bar {ratios}")
+    print(f"phase main: ok: r128_fused {N_CARRIED} x 1 s carried through the kernel and its "
+          f"plain version at B={B_MAIN} C=2 T={FS}, both modes: worst error over its bar "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + " (<= 1 passes); hist bit-exact; seg mode's z, hist, tpmax identical to full rate")
 
 
 def ballistics_carried(dev, blocks_dev, w_ppm):
@@ -2463,6 +2524,7 @@ def main():
     marks.append(("main analyzers", time.perf_counter()))
     seg_launches, wide_launches = variants_main(dev, blocks_dev, reset_counts, all_counts)
     marks.append(("main variants", time.perf_counter()))
+    r128_carried(dev, blocks_dev)
     truepeak_carried(dev, blocks_dev, w_tp)
     ballistics_carried(dev, blocks_dev, w_ppm)
     spectrum_carried(dev)
@@ -2539,7 +2601,7 @@ def main():
           f"version {ms_plain:.4f} ms (medians {ms_p}) at B={B_MAIN} C=2 T={FS} [{gpu}]")
     xb = torch.as_tensor(blocks[0], device=dev)
     n_chunks = 120  # 240 in bench.py; halved to keep the run short
-    runs = []
+    runs, enqueue = [], []
     for _ in range(3):
         st = meter.init((B_MAIN,), device=dev)
         st = meter.update(st, xb, flat=True)  # warm caches and allocator
@@ -2548,6 +2610,7 @@ def main():
         t0 = time.perf_counter()
         for _ in range(n_chunks):
             st = meter.update(st, xb, flat=True)
+        enqueue.append(time.perf_counter() - t0)
         out, _ = meter.read(st)
         torch.cuda.synchronize()
         out["integrated"].cpu()
@@ -2556,6 +2619,13 @@ def main():
     print(f"phase times: main path {xrt:.1f} x-realtime (best of {len(runs)}: "
           f"{[round(r, 4) for r in runs]} s for {n_chunks} x 1 s blocks at B={B_MAIN}, "
           f"{min(runs) / n_chunks * 1e3:.3f} ms per update) [{gpu}]")
+    flat_meter = types.SimpleNamespace(update=lambda s, x: meter.update(s, x, flat=True))
+    r128_dev_us, r128_kern_us = device_us_per_update(flat_meter, st, [xb])
+    print(f"phase times: EBUr128 update {min(runs) / n_chunks * 1e3:.3f} ms at B={B_MAIN}, host "
+          f"enqueue {[round(e / n_chunks * 1e3, 3) for e in enqueue]} ms per update; "
+          f"torch.profiler: device time {r128_dev_us:.1f} us per update, r128_fused "
+          f"{r128_kern_us:.1f} us of it; r128_fused alone {ms_kernel:.4f} ms (PERF.md row 1) "
+          f"[{gpu}]")
 
     # ballistics and truepeak_fused at the main-path shape; the plain
     # versions' one call was timed in phase kernels

@@ -46,6 +46,8 @@ launch_count = 0
 seg_launch_count = 0
 
 _GAINS_ON: dict[tuple, torch.Tensor] = {}
+# id(op) -> (op, K's first row as the launcher's host array)
+_TOEPLITZ_ROW: dict[int, tuple[object, ctypes.Array]] = {}
 
 
 def _split_layout(x: torch.Tensor, C: int) -> tuple[int, int]:
@@ -138,6 +140,33 @@ def _gains_on(gains: tuple, device) -> torch.Tensor:
     return _GAINS_ON[key]
 
 
+def toeplitz_row(op) -> np.ndarray:
+    """K's first row h, float32 [128], where the operator's kmat (stored
+    as y = u @ kmat) is the lower-triangular Toeplitz matrix kmat[j, i] =
+    h[i - j] for i >= j and 0 above, as ``lti.build_lti_block_op`` builds
+    it; raises ValueError otherwise.  The kernel takes the taps h, not the
+    matrix."""
+    kmat = op.kmat
+    if isinstance(kmat, torch.Tensor):
+        kmat = kmat.detach().cpu().numpy()
+    kmat = np.asarray(kmat, np.float32)
+    h = kmat[0]
+    lag = np.arange(BLOCK)[None, :] - np.arange(BLOCK)[:, None]  # i - j
+    if kmat.shape != (BLOCK, BLOCK) or not np.array_equal(
+            kmat, np.where(lag >= 0, h[np.clip(lag, 0, None)], np.float32(0))):
+        raise ValueError("op.kmat must be the lower-triangular Toeplitz matrix of the "
+                         "block's impulse response")
+    return h
+
+
+def _toeplitz_row_host(op) -> ctypes.Array:
+    hit = _TOEPLITZ_ROW.get(id(op))
+    if hit is None or hit[0] is not op:
+        hit = (op, (ctypes.c_float * BLOCK)(*toeplitz_row(op).tolist()))
+        _TOEPLITZ_ROW[id(op)] = hit
+    return hit[1]
+
+
 def _fused_core_cuda(x, z0, hist, gains, op, off=None, fragm=None, n_slots=None):
     global launch_count, seg_launch_count
     from ..runtime import build
@@ -160,8 +189,8 @@ def _fused_core_cuda(x, z0, hist, gains, op, off=None, fragm=None, n_slots=None)
     if seg_mode and not off.is_contiguous():
         raise ValueError("off must be contiguous")
 
+    h_row = _toeplitz_row_host(op)
     w = op.tensors(device)
-    taps = resample.upsample4_taps_on(device)
     p = torch.empty((B, int(n_slots)) if seg_mode else (B, T), dtype=torch.float32,
                     device=device)
     z = torch.empty((B, C, 4), dtype=torch.float32, device=device)
@@ -174,8 +203,8 @@ def _fused_core_cuda(x, z0, hist, gains, op, off=None, fragm=None, n_slots=None)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.r128_fused_launch(
             x.data_ptr(), z0.data_ptr(), hist.data_ptr(),
-            w.kmat.data_ptr(), w.sy.data_ptr(), w.at.data_ptr(),
-            w.g.data_ptr(), taps.data_ptr(), g_host,
+            w.sy.data_ptr(), w.at.data_ptr(), w.g.data_ptr(),
+            h_row, resample.upsample4_taps_host(), g_host,
             B, C, T,
             off.data_ptr() if seg_mode else None,
             int(fragm) if seg_mode else 0, int(n_slots) if seg_mode else 0,

@@ -22,6 +22,8 @@ kernel (csrc/r128_fused.cu) reproduces that rule.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -32,7 +34,7 @@ _HL = 24  # zita half-length: 48 taps, 47 samples of history
 
 _BLOCK_MATS: dict[tuple, np.ndarray] = {}
 _BLOCK_MATS_ON: dict[tuple, torch.Tensor] = {}
-_TAPS_ON: dict[torch.device, torch.Tensor] = {}
+_TAPS_HOST = None
 
 
 def upsample4_taps() -> np.ndarray:
@@ -40,13 +42,13 @@ def upsample4_taps() -> np.ndarray:
     return upsample4_kernel(_HL).astype(np.float32)
 
 
-def upsample4_taps_on(device) -> torch.Tensor:
-    """upsample4_taps() as a contiguous tensor on ``device``, cached: what
-    the CUDA kernels read."""
-    device = canonical_device(device)
-    if device not in _TAPS_ON:
-        _TAPS_ON[device] = torch.as_tensor(upsample4_taps(), device=device).contiguous()
-    return _TAPS_ON[device]
+def upsample4_taps_host() -> ctypes.Array:
+    """upsample4_taps() as a host float[192], cached: what the CUDA
+    launchers copy into their kernels' parameters."""
+    global _TAPS_HOST
+    if _TAPS_HOST is None:
+        _TAPS_HOST = (ctypes.c_float * 192)(*upsample4_taps().reshape(-1).tolist())
+    return _TAPS_HOST
 
 
 def _block_matrix(taps: np.ndarray, tb: int) -> np.ndarray:

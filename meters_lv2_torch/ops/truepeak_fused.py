@@ -90,11 +90,8 @@ def truepeak_fused_reference(
     return z1, z2, m, p, hist1
 
 
-_TAPS = None  # the [4, 48] taps as the launcher's host array
-
-
 def _truepeak_fused_cuda(x, hist, z1, z2, m, p, w1, w2, w3, body="envelope"):
-    global launch_count, serial_launch_count, _TAPS
+    global launch_count, serial_launch_count
     from ..runtime import build
 
     _check_body(body, w1, w2)
@@ -112,8 +109,6 @@ def _truepeak_fused_cuda(x, hist, z1, z2, m, p, w1, w2, w3, body="envelope"):
     for name, v in (("z1", z1), ("z2", z2), ("m", m), ("p", p)):
         check_tensor(name, v, (N,), device)
     w1, w2, w3 = coeffs_f32(w1, w2, w3)
-    if _TAPS is None:
-        _TAPS = (ctypes.c_float * (4 * 48))(*resample.upsample4_taps().reshape(-1).tolist())
     env_dec = (ctypes.c_float * 8)(*envelope_decrements(w1), *envelope_decrements(w2))
     envelope = body == "envelope"
     out = torch.empty((4, N), dtype=torch.float32, device=device)
@@ -123,7 +118,7 @@ def _truepeak_fused_cuda(x, hist, z1, z2, m, p, w1, w2, w3, body="envelope"):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.truepeak_fused_launch(
             x.data_ptr(), x.stride(0), hist.data_ptr(), z1.data_ptr(),
-            z2.data_ptr(), m.data_ptr(), p.data_ptr(), _TAPS,
+            z2.data_ptr(), m.data_ptr(), p.data_ptr(), resample.upsample4_taps_host(),
             N, T, w1, w2, w3, int(envelope), env_dec,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             out[3].data_ptr(), h.data_ptr(), stream,

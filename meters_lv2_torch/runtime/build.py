@@ -121,8 +121,8 @@ def kernels() -> ctypes.CDLL:
         f = lib.r128_fused_launch
         f.restype = ci
         f.argtypes = (
-            [vp] * 8  # x, z0, hist, kmat, sy, at, g, taps (device)
-            + [ctypes.POINTER(ctypes.c_float)]  # gains (host)
+            [vp] * 6  # x, z0, hist, sy, at, g (device)
+            + [ctypes.POINTER(ctypes.c_float)] * 3  # h, taps, gains (host)
             + [ci] * 3  # B, C, T
             + [vp, ci, ci]  # off (device, or None: full rate), fragm, n_slots
             + [vp] * 4  # p or seg, z, hist_out, tpmax (device)

@@ -85,6 +85,16 @@ def _assert_core_close(got, ref):
     (2, 1, 256, True, False),
     (3, 5, 1280, False, False),
     (4, 2, 1024, True, True),
+    # a live meter's few streams, one block, and a last unit of 3 blocks
+    (1, 2, 128, False, False),
+    (1, 3, 128, True, False),
+    (8, 5, 128, False, False),
+    (1, 5, 4480, True, False),
+    (8, 3, 48000, False, False),
+    (8, 2, 48000, True, False),
+    # more streams than an H100 has SMs: the kernel's 4-producer CTAs
+    (300, 2, 640, True, False),
+    (140, 5, 2560, False, True),
 ])
 def test_kernel_matches_plain(cuda, B, C, T, flat, nonfinite):
     rng = np.random.default_rng(B * C)
@@ -101,6 +111,56 @@ def test_kernel_matches_plain(cuda, B, C, T, flat, nonfinite):
     ref = r128_fused.fused_core_reference(xd, zd, hd, gains, op)
     torch.cuda.synchronize()
     assert r128_fused.launch_count == n0 + 1
+    _assert_core_close(got, ref)
+
+
+def inject_nonfinite(x, hist):
+    """r128_fused's non-finite cases, in place, on x [B >= 6, C, T >= 2560]
+    and hist [B, C, 47]: NaN and +-Inf at the edges of 128-sample blocks
+    and of the kernel's 512-sample units, at both ends of the history, a
+    +Inf beside a -Inf inside one block that its neighbours leave clean,
+    and an infinity in the last sample (which becomes the history, compared
+    bit for bit: a NaN there would never compare equal); stream 5 clean."""
+    C, T = x.shape[1], x.shape[2]
+    x[0, 0, 127], x[0, C - 1, 128] = np.nan, np.inf
+    x[1, 0, 511], x[1, 0, 512] = -np.inf, np.nan
+    hist[2, 0, 0], hist[2, C - 1, 46] = np.nan, np.inf
+    x[3, 0, 645], x[3, 0, 646], x[3, C - 1, 704] = np.inf, -np.inf, np.nan
+    x[4, C - 1, T - 1], x[4, 0, 2047] = -np.inf, np.nan
+
+
+@pytest.mark.parametrize("C,seg,B", [(2, False, 6), (5, False, 6), (2, True, 6), (3, True, 6),
+                                     (2, False, 200), (5, True, 140)])
+def test_kernel_nonfinite_edges(cuda, C, seg, B):
+    """NaN and +-Inf at block and unit edges, in the history, and in a
+    block beside a clean one (inject_nonfinite; tests/test_torch_r128_body.py
+    emulates the same cases), in both modes, against the plain version; at
+    B=140 and 200 on the kernel's 4-producer CTAs."""
+    T = 2560
+    rng = np.random.default_rng(C + 10 * seg)
+    x = (0.3 * rng.standard_normal((B, C, T))).astype(np.float32)
+    z0 = (0.01 * rng.standard_normal((B, C, 4))).astype(np.float32)
+    h0 = (0.1 * rng.standard_normal((B, C, 47))).astype(np.float32)
+    inject_nonfinite(x, h0)
+    gains = (2.0,) if C == 1 else r128_fused.gains_f32(design.R128_CHAN_GAIN[:C])
+    op = lti.LTISystem(*design.k_weighting_state_space(48000)).op(128)
+    xd, zd, hd = (torch.as_tensor(a, device=cuda) for a in (x, z0, h0))
+    kw = {}
+    if seg:
+        kw = dict(off=torch.as_tensor(rng.integers(0, 2400, B).astype(np.int32), device=cuda),
+                  fragm=2400, n_slots=T // 2400 + 2)
+    got = r128_fused.fused_core(xd, zd, hd, gains, op, **kw)
+    ref = r128_fused.fused_core_reference(xd, zd, hd, gains, op, **kw)
+    torch.cuda.synchronize()
+    if seg:
+        seg_g, seg_r = got[0].cpu().double(), ref[0].cpu().double()
+        assert torch.equal(torch.isnan(seg_g), torch.isnan(seg_r))
+        f = torch.isfinite(seg_r)
+        assert bool(((seg_g - seg_r).abs()[f] <= 2e-6 * seg_r.abs()[f] + 1e-9).all())
+        got, ref = got[1:], ref[1:]
+        full = r128_fused.fused_core(xd, zd, hd, gains, op)
+        got = (full[0],) + tuple(got)
+        ref = (r128_fused.fused_core_reference(xd, zd, hd, gains, op)[0],) + tuple(ref)
     _assert_core_close(got, ref)
 
 
@@ -755,7 +815,9 @@ def test_ballistics_envelope_kernel_matches_plain(cuda, N, T, track_peak, nonfin
 
 
 @pytest.mark.parametrize("fs,C,T,B", [(48000, 2, 2560, 5), (44100, 5, 2304, 3),
-                                      (48000, 1, 48000, 4)])
+                                      (48000, 1, 48000, 4), (48000, 3, 128, 1),
+                                      (48000, 5, 128, 8), (44100, 3, 4480, 8),
+                                      (48000, 5, 48000, 1), (48000, 2, 2560, 200)])
 def test_r128_seg_mode_kernel_matches_plain(cuda, fs, C, T, B):
     fragm = fs // 20
     n_slots = T // fragm + 2

@@ -8,9 +8,10 @@ trees can be compared in one call on one card: run it once per tree, in
 turns (parent, change, change, parent).  Each meter runs as chip_smoke.py's
 phase times runs it: B=256 streams, 60 updates cycling over 12 flat 1 s
 blocks of 0.1 N(0, 1) samples (48 kHz, stereo [256, 2, 48000]; channel 0
-for the mono-input meters), best of 2 runs ended by a host copy, with the
-host's enqueue time per update and torch.profiler's device time per update
-over 10 updates.  One line per meter, then the card's name and power limit.
+for the mono-input meters; EBUr128 takes them flat, [256, 96000], as
+bench.py does), best of 2 runs ended by a host copy, with the host's
+enqueue time per update and torch.profiler's device time per update over
+10 updates.  One line per meter, then the card's name and power limit.
 """
 
 import argparse
@@ -24,6 +25,7 @@ STEREO = {"dBTPstereo": (B, 2), "BBCstereo": (B, 2), "DINstereo": (B, 2), "dr14s
           "TPnRMSstereo": (B,), "spectr30stereo": (B,)}
 MONO_INPUT = {"bitmeter", "SigDistHist"}
 DOWNMIX = {"spectr30stereo"}  # update(..., stereo=True): the [B, 2, T] block downmixed
+FLAT = {"EBUr128"}  # update(..., flat=True) on [B, 2 T]: the main path
 
 
 def main():
@@ -49,8 +51,9 @@ def main():
     for name in args.meters:
         m = meters_lv2_torch.create(name, FS)
         batch = STEREO.get(name, (B,))
-        xs = [b[:, 0] if name in MONO_INPUT else b for b in blocks]
-        kw = {"stereo": True} if name in DOWNMIX else {}
+        xs = [b[:, 0] if name in MONO_INPUT else b.reshape(B, -1) if name in FLAT else b
+              for b in blocks]
+        kw = {"stereo": True} if name in DOWNMIX else {"flat": True} if name in FLAT else {}
         runs, enqueue = [], []
         for _ in range(2):
             st = m.update(m.init(batch, device=dev), xs[0], **kw)  # warm
