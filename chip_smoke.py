@@ -16,9 +16,10 @@ Phases, each printed on its own line; any failure exits non-zero:
               the serial body's plain version, its serial body against
               its own, at N=512 T=48000 and on rows with NaN and +-Inf at
               block edges, in the history and side by side; stft_fused
-              in all three modes at [256, 2, 56192] and at W=256 hop
-              1764, raw mode also against torch.fft.rfft, and with a NaN
-              and a +Inf sample); the ballistics envelope body (the PPM
+              in all three modes at [256, 2, 56192] (its Hopper body) and
+              at W=256 hop 1764 (its generic body), raw mode also against
+              torch.fft.rfft, with a NaN and a +Inf sample, and at an odd
+              hop); the ballistics envelope body (the PPM
               meters' default) against its plain version and the serial
               kernel (N=512 T=48000 with and without track_peak,
               adversarial rows, and 600 rows of T=1000 with NaN and +-Inf
@@ -88,7 +89,8 @@ Phases, each printed on its own line; any failure exits non-zero:
               spectr30stereo, surround5 and surround8 over 60; for the
               surround meters also the host's enqueue time and the device
               time of an update under torch.profiler); stft_fused also
-              against torch.fft.rfft of the windowed frames, and the three
+              against torch.fft.rfft of the windowed frames and at B = 1
+              and 8, and the three
               analyzers' x-realtime over 60 blocks with their enqueue and
               device time per update; each variant against its default,
               and surround5 and surround8 x-realtime with the wide layout
@@ -1101,7 +1103,7 @@ def surround_golden(dev):
 # the __global__ functions of meters_lv2_torch/csrc, as the profiler names them
 PORT_KERNELS = ("r128_fused_kernel", "ballistics_kernel", "ballistics_env_kernel",
                 "truepeak_fused_kernel", "bitmeter_stats_kernel", "spectrum_fused_kernel",
-                "surround_fused_kernel", "stft_fused_kernel")
+                "surround_fused_kernel", "stft_hopper_kernel", "stft_generic_kernel")
 
 
 def device_us_per_update(m, st, xs, n=10):
@@ -1209,11 +1211,12 @@ def stft_bound(B, W, F, hop):
 
 def stft_kernel_cases(dev):
     """stft_fused against its plain version: all three modes at the main-path
-    shape [256, 2, 56192] (W=8192, hop 1920, F=25), and at W=256 hop 1764
-    (the 44.1 kHz golden geometry), raw mode also against torch.fft.rfft of
-    the windowed frames, and a NaN in one stream's left channel with +Inf in
-    another stream's right channel.  Returns (max abs re/im error of the
-    raw mode at the main-path shape, breaches)."""
+    shape [256, 2, 56192] (W=8192, hop 1920, F=25: the Hopper body), and at
+    W=256 hop 1764 (the 44.1 kHz golden geometry: the generic body), raw
+    mode also against torch.fft.rfft of the windowed frames, a NaN in one
+    stream's left channel with +Inf in another stream's right channel, and
+    an odd hop (the first pass's scalar loads).  Returns (max abs re/im
+    error of the raw mode at the main-path shape, breaches)."""
     import torch
 
     from meters_lv2_torch.ops import fft, stft_fused
@@ -1226,6 +1229,7 @@ def stft_kernel_cases(dev):
         ("W=256 hop 1764 B=4 F=5", 256, 1764, 4, 5, False),
         ("NaN (stream 1 left) and +Inf (stream 2 right) W=8192 B=3 F=3", ANA_W, ANA_HOP, 3, 3,
          True),
+        ("odd hop 1001 (frames off 8-byte alignment) W=8192 B=3 F=3", ANA_W, 1001, 3, 3, False),
     ]:
         ext, win, skip = stft_inputs(B, W, hop, F, W + B, dev, nonfinite)
         raw = stft_fused.plain_frames(ext, win, hop, "raw", 0.0)
@@ -1380,7 +1384,8 @@ def analyzers_times(dev, blocks3, gpu):
     phase wheel's mode (plain, kernel, kernel, plain, one call at a time),
     the stereoscope and raw modes once each, the library call
     torch.fft.rfft on the windowed frames (the transform alone: no
-    framing, window or epilogue), and each analyzer's x-realtime over
+    framing, window or epilogue), the kernel at B = 1 and 8 (a live
+    meter's few streams), and each analyzer's x-realtime over
     N_ANA blocks at B=256, with its host enqueue time and device time per
     update (torch.profiler).  Returns (kernel ms, plain
     ms, library ms)."""
@@ -1410,6 +1415,13 @@ def analyzers_times(dev, blocks3, gpu):
           f"version {ms[1]:.4f} ms (medians {ms_p}); torch.fft.rfft of the windowed frames alone "
           f"{ms_lib:.4f} ms, at B={B_MAIN} W={ANA_W} hop {ANA_HOP} F={ANA_F} [{gpu}]")
     del ext
+    few = {}
+    for B in (1, 8):  # a live meter's few streams: B F CTAs, under one a SM
+        e, w, _ = stft_inputs(B, ANA_W, ANA_HOP, ANA_F, 17 + B, dev)
+        few[B] = cuda_ms(lambda: stft_fused.analyzer_frames(e, w, ANA_HOP, "phasewheel", ANA_THR),
+                         10)
+    print(f"phase times: stft_fused kernel at B=1 {few[1]:.4f} ms, B=8 {few[8]:.4f} ms (phasewheel "
+          f"mode, W={ANA_W} hop {ANA_HOP} F={ANA_F}) [{gpu}]")
     for name in ("phasewheel", "stereoscope", "goniometer"):
         m = meters_lv2_torch.create(name, FS)
         xs = [torch.as_tensor(b, device=dev) for b in blocks3]

@@ -21,7 +21,8 @@ bins 0 and W/2-1 is 0.  Both channels are transformed apart, so a NaN or
 Inf in one channel never reaches the other's bins.
 
 ``analyzer_frames`` launches the hand-written CUDA kernel
-(csrc/stft_fused.cu) for CUDA tensors and uses the plain PyTorch version,
+(csrc/stft_fused.cu: the Hopper body at W = 8192, the generic body below,
+``body``) for CUDA tensors and uses the plain PyTorch version,
 ``plain_frames`` (frames by ``unfold``, the window, ``torch.fft.rfft``,
 the same epilogue), only for tensors on the CPU.  On a CUDA tensor it
 launches the kernel or raises; it never falls back.  Two float32 FFTs
@@ -41,6 +42,7 @@ from .lti import canonical_device, check_tensor
 
 MODES = {"raw": 0, "phasewheel": 1, "stereoscope": 2}
 MIN_W, MAX_W = 256, 8192  # window sizes the kernel is built for (powers of two)
+HOPPER_W = 8192  # the analyzers' window: the Hopper body's; smaller ones run the generic body
 
 # Kernel launches since import (or since a caller reset it): a run can
 # show that its main path went through the kernel.  Only the CUDA branch
@@ -62,6 +64,39 @@ def twiddles(W: int, device) -> torch.Tensor:
         tw = np.stack([np.cos(a), -np.sin(a)], axis=-1).astype(np.float32)
         _TWIDDLES[key] = torch.as_tensor(tw, device=device)
     return _TWIDDLES[key]
+
+
+def body(W: int) -> str:
+    """The kernel body a window of W runs: "hopper" (W = 8192: per-pass
+    twiddle tables, a named barrier a channel, paired bins, one atan2f a
+    phase difference) or "generic" (W = 256 .. 4096, the first design)."""
+    if W < MIN_W or W > MAX_W or W & (W - 1):
+        raise ValueError(f"the kernel takes a power-of-two window of {MIN_W}..{MAX_W}, got {W}")
+    return "hopper" if W == HOPPER_W else "generic"
+
+
+_PASS_TWIDDLES: dict[tuple, torch.Tensor] = {}
+
+
+def pass_twiddles(W: int, device) -> torch.Tensor:
+    """[4080, 2] float32 table of the Hopper body's stage twiddles (W = 8192,
+    a 4096-point complex FFT of three radix-16 passes): pass 2's
+    e^{-2 pi i r m / 256} at row 16 (r - 1) + m (r = 1..15, m < 16), then
+    pass 3's e^{-2 pi i r j / 4096} at row 240 + 256 (r - 1) + j (j < 256),
+    so that a warp's load of twiddle r is one contiguous run.  Built in
+    float64 on the host and cached per (W, device)."""
+    if body(W) != "hopper":
+        raise ValueError(f"pass_twiddles is the Hopper body's (W = {HOPPER_W}), got W = {W}")
+    device = canonical_device(device)
+    key = (W, device)
+    if key not in _PASS_TWIDDLES:
+        r = np.arange(1, 16, dtype=np.float64)[:, None]
+        a2 = 2 * math.pi * r * np.arange(16) / 256
+        a3 = 2 * math.pi * r * np.arange(256) / 4096
+        a = np.concatenate([a2.ravel(), a3.ravel()])
+        tw = np.stack([np.cos(a), -np.sin(a)], axis=-1).astype(np.float32)
+        _PASS_TWIDDLES[key] = torch.as_tensor(tw, device=device)
+    return _PASS_TWIDDLES[key]
 
 
 def _check_mode(mode: str) -> None:
@@ -108,8 +143,7 @@ def _analyzer_frames_cuda(ext, win, hop, mode, thr):
         raise ValueError("ext must be contiguous")
     *batch, _, L = ext.shape
     W = win.shape[-1]
-    if W < MIN_W or W > MAX_W or W & (W - 1):
-        raise ValueError(f"the kernel takes a power-of-two window of {MIN_W}..{MAX_W}, got {W}")
+    hopper = body(W) == "hopper"
     if hop < 1:
         raise ValueError(f"hop must be positive, got {hop}")
     F = (L - W) // hop
@@ -124,6 +158,7 @@ def _analyzer_frames_cuda(ext, win, hop, mode, thr):
     if win.data_ptr() % 8:
         raise ValueError("win must be 8-byte aligned (the kernel reads float2)")
     tw = twiddles(W, device)
+    ptw = pass_twiddles(W, device).data_ptr() if hopper else None
     D = W // 2
     oshape = (B, 2, F, D) if mode == "raw" else (B, F, D)
     out_a = torch.empty(oshape, dtype=torch.float32, device=device)
@@ -132,7 +167,7 @@ def _analyzer_frames_cuda(ext, win, hop, mode, thr):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.stft_fused_launch(
-            ext3.data_ptr(), win.data_ptr(), tw.data_ptr(), B, L, W, hop, F, MODES[mode],
+            ext3.data_ptr(), win.data_ptr(), tw.data_ptr(), ptw, B, L, W, hop, F, MODES[mode],
             float(np.float32(thr)), out_a.data_ptr(), out_b.data_ptr(), stream,
         )
     build.check(lib, rc, "stft_fused_launch")

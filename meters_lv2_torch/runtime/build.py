@@ -184,12 +184,14 @@ def kernels() -> ctypes.CDLL:
         f = lib.stft_fused_launch
         f.restype = ci
         f.argtypes = (
-            [vp] * 3  # ext, win, tw (device)
+            [vp] * 4  # ext, win, tw, ptw (device; ptw None below W = 8192)
             + [ci] * 6  # B, L, W, hop, F, mode
             + [cf]  # thr
             + [vp] * 2  # out_a, out_b (device)
             + [vp]  # cudaStream_t
         )
+        lib.stft_fused_body.restype = ci
+        lib.stft_fused_body.argtypes = [ci]
         lib.meters_cuda_error_string.restype = ctypes.c_char_p
         lib.meters_cuda_error_string.argtypes = [ci]
         _lib = lib

@@ -656,6 +656,23 @@ def stft_close(got, ref, raw, mode, thr, skip=()):
     return worst, errs
 
 
+def dphi_unwrapped_ok(got, ref, raw, skip=()):
+    """Whether the phase wheel's dphi is phi_R - phi_L itself, not a value
+    2 pi away (stft_close compares phases modulo 2 pi): on every bin
+    stft_close checks, within phase_bar without wrapping.  ``got`` and
+    ``ref`` are (dphi, level) of the kernel (or an emulation) and the plain
+    version, ``raw`` the plain version's raw (re, im)."""
+    re, im = (v.double() for v in raw)
+    pw = re * re + im * im
+    pk = torch.where(torch.isfinite(pw), pw, 0.0).amax(-1, keepdim=True)
+    pkf = torch.maximum(pk[:, 0], pk[:, 1])
+    pmin = torch.minimum(pw[:, 0], pw[:, 1])
+    a, ar = got[0].double(), ref[0].double()
+    sig = (ref[1] > -99) & (got[1] > -99) & (pmin > 1e-6 * pkf)
+    sig[list(skip)] = False
+    return bool(sig.any()) and bool(((a - ar).abs() <= phase_bar(ar, pmin, pkf))[sig].all())
+
+
 def stft_inputs(B, W, hop, F, seed, dev, nonfinite=False):
     """(ext [B, 2, W + F hop], win [W]) on ``dev``: 0.3 N(0, 1) plus a 997 Hz
     sine; with ``nonfinite`` a NaN in stream 1's left channel and +Inf in
@@ -678,6 +695,11 @@ def stft_inputs(B, W, hop, F, seed, dev, nonfinite=False):
     (256, 1764, 4, 5, False),
     (256, 1920, 3, 1, True),
     (8192, 1920, 3, 3, True),
+    (8192, 1920, 1, 25, False),  # one stream: 25 CTAs
+    (8192, 1764, 4, 25, False),  # 44.1 kHz hop
+    (8192, 1920, 300, 1, False),  # B * F above two CTAs an SM: a second wave
+    (8192, 1920, 11, 25, True),  # 275 CTAs, NaN and Inf
+    (8192, 1001, 3, 3, False),  # odd hop and L: frames off 8-byte alignment, scalar loads
 ])
 def test_stft_kernel_matches_plain(cuda, mode, W, hop, B, F, nonfinite):
     ext, win, skip = stft_inputs(B, W, hop, F, W + B, cuda, nonfinite)
@@ -690,6 +712,78 @@ def test_stft_kernel_matches_plain(cuda, mode, W, hop, B, F, nonfinite):
     assert stft_fused.launch_count == n0 + 1
     _, errs = stft_close(got, ref, raw, mode, thr, skip)
     assert not errs, errs
+
+
+@pytest.mark.parametrize("hop,B,F,nonfinite", [(1920, 8, 25, False), (1764, 4, 25, False),
+                                               (1920, 3, 3, True)])
+def test_stft_dphi_is_the_plain_difference_unwrapped(cuda, hop, B, F, nonfinite):
+    """The Hopper body's phase difference (one atan2 of X_R conj(X_L) and
+    the multiple of 2 pi the quadrants fix) is the plain version's
+    phi_R - phi_L, unwrapped."""
+    ext, win, skip = stft_inputs(B, 8192, hop, F, 8192 + B, cuda, nonfinite)
+    got = stft_fused.analyzer_frames(ext, win, hop, "phasewheel", 1e-6)
+    ref = stft_fused.plain_frames(ext, win, hop, "phasewheel", 1e-6)
+    raw = stft_fused.plain_frames(ext, win, hop, "raw", 1e-6)
+    assert dphi_unwrapped_ok(got, ref, raw, skip)
+
+
+def test_stft_body_of_each_window(cuda):
+    """The kernel runs the body ops/stft_fused.py::body names: the Hopper
+    body at W = 8192 only."""
+    from meters_lv2_torch.runtime import build
+
+    lib = build.kernels()
+    for W in (128, 256, 512, 1024, 2048, 3000, 4096, 8192, 16384):
+        try:
+            want = {"hopper": 1, "generic": 0}[stft_fused.body(W)]
+        except ValueError:
+            want = -1
+        assert lib.stft_fused_body(W) == want, W
+
+
+def exact_part_inputs(W, hop):
+    """ext [3, 2, W + hop] float32 and a window of ones whose bins have
+    exact +-0 and +-inf parts: stream 0 a constant (+0.5 left, -0.5 right:
+    every bin but 0 an exact zero); stream 1 a cosine (left) and a sine
+    (right) at bin W / 8 so loud that the transform overflows: a few bins
+    with an infinite part and a power that is not NaN, and parts far above
+    2^100 (where the phase difference takes two atan2); stream 2 silence
+    (left: every bin +-0) beside noise (right).  numpy arrays."""
+    n = np.arange(W)
+    amp = 3e36 if W == 256 else 1e35
+    ext = np.zeros((3, 2, W + hop), np.float32)
+    ext[0, 0], ext[0, 1] = np.float32(0.5), np.float32(-0.5)
+    ext[1, 0, hop:] = (amp * np.cos(2 * np.pi * n / 8)).astype(np.float32)
+    ext[1, 1, hop:] = (amp * np.sin(2 * np.pi * n / 8 + 0.3)).astype(np.float32)
+    ext[2, 1] = np.random.default_rng(W).standard_normal(W + hop).astype(np.float32)
+    return ext, np.ones(W, np.float32)
+
+
+EXACT_PHASE_TOL = 1e-6  # two atan2f of up to 3 ulp each (7e-7 at pi), the difference rounded
+
+
+@pytest.mark.parametrize("W", [256, 8192])
+def test_stft_phase_of_exact_zero_and_inf_parts(cuda, W):
+    """The kernel's phase difference (one atan2f of X_R conj(X_L) at
+    W = 8192, two atan2f below) through the phase wheel's mode at thr = -1 (every bin whose powers are not NaN
+    passes), on bins with exact +-0 and +-inf parts: dphi equals
+    torch.atan2 of the kernel's own raw bins, right minus left, within
+    EXACT_PHASE_TOL (a wrong signed zero or infinity is off by pi/4 or
+    more), and the bins with a NaN power read (0, -100)."""
+    hop = 100
+    ext, win = (torch.as_tensor(a, device=cuda) for a in exact_part_inputs(W, hop))
+    re, im = stft_fused.analyzer_frames(ext, win, hop, "raw", -1.0)
+    dphi, level = stft_fused.analyzer_frames(ext, win, hop, "phasewheel", -1.0)
+    ph = torch.atan2(im, re)
+    ph[..., 0] = ph[..., -1] = 0
+    P = re * re + im * im
+    nan = torch.isnan(P[:, 0]) | torch.isnan(P[:, 1])
+    want = ph[:, 1] - ph[:, 0]
+    zero = ((re == 0) | (im == 0)) & ~torch.isnan(P)
+    inf = (torch.isinf(re) | torch.isinf(im)) & ~torch.isnan(P)
+    assert int(zero.sum()) > 100 and int(inf.sum()) > 0  # the cases are there
+    assert bool(((dphi == 0) & (level == -100))[nan].all())
+    assert (dphi - want).abs()[~nan].max().item() <= EXACT_PHASE_TOL
 
 
 @pytest.mark.parametrize("name,fs", [("phasewheel", 48000), ("stereoscope", 44100),
