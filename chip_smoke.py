@@ -19,7 +19,11 @@ Phases, each printed on its own line; any failure exits non-zero:
               in all three modes at [256, 2, 56192] (its Hopper body) and
               at W=256 hop 1764 (its generic body), raw mode also against
               torch.fft.rfft, with a NaN and a +Inf sample, and at an odd
-              hop); the ballistics envelope body (the PPM
+              hop); bitmeter_stats exact in every field at the main-path
+              shape, at N=1 and 8, on one-exponent, silent, denormal,
+              exponent-diverse and every-exponent rows, at its block and
+              cluster-slice edges +-1, at T=3, and on rows not 16-byte
+              aligned; the ballistics envelope body (the PPM
               meters' default) against its plain version and the serial
               kernel (N=512 T=48000 with and without track_peak,
               adversarial rows, and 600 rows of T=1000 with NaN and +-Inf
@@ -90,7 +94,7 @@ Phases, each printed on its own line; any failure exits non-zero:
               surround meters also the host's enqueue time and the device
               time of an update under torch.profiler); stft_fused also
               against torch.fft.rfft of the windowed frames and at B = 1
-              and 8, and the three
+              and 8, bitmeter_stats also at N = 1 and 8, and the three
               analyzers' x-realtime over 60 blocks with their enqueue and
               device time per update; each variant against its default,
               and surround5 and surround8 x-realtime with the wide layout
@@ -2288,6 +2292,8 @@ def main():
     xw = np.stack([w[0], w[1], -w[0]])
     xr = rng.standard_normal((B_MAIN, FS), dtype=np.float32) * np.float32(0.1)
     bit_err = None
+    from test_torch_bitmeter_body import bitmeter_rows
+
     for tag, x, strided in [
         (f"main-path shape N={B_MAIN} T={FS}", np.random.default_rng(0).standard_normal(
             (B_MAIN, FS), dtype=np.float32) * np.float32(0.1), False),
@@ -2296,9 +2302,35 @@ def main():
         ("N=5 T=1", xr[:5, :1], False),
         ("strided rows N=7 T=10000", xr[:7, :10000], True),
         ("weird_floats strided rows N=3 T=48000", xw, True),
+        # a live meter's few streams; each input kind; every lane its own
+        # exponent group and all 254 normal exponents with NaN, +-Inf, +-0;
+        # the kernel's 512-sample blocks, 4096-sample CTA rounds and N=1's
+        # cluster slices (4096 at T = 32768) +-1; T = 3; rows not 16-byte
+        # aligned (a row stride of 1 mod 4) and a tensor one element into
+        # its storage
+        ("N=1 T=48000", xr[:1], False), ("N=8 T=48000", xr[:8], False),
+        ("square N=8 T=48000", bitmeter_rows("square", 8, FS), False),
+        ("silence N=8 T=48000", bitmeter_rows("silence", 8, FS), False),
+        ("denormal N=4 T=48000", bitmeter_rows("denormal", 4, FS), False),
+        ("diverse strided rows N=8 T=48000", bitmeter_rows("diverse", 8, FS), True),
+        ("loud N=8 T=48000", bitmeter_rows("loud", 8, FS), False),
+        ("every_exponent N=2 T=8192", bitmeter_rows("every_exponent", 2, 8192), False),
+        *[(f"N=2 T={t}", xr[:2, :t], False) for t in (511, 513, 4095, 4097)],
+        *[(f"N=1 T={t}", bitmeter_rows("gauss", 1, t, seed=t), False) for t in (32767, 32769)],
+        ("N=3 T=3", xr[:3, :3], False),
+        ("ld 1 mod 4 N=5 T=48000", xr[:5], "ld1mod4"),
+        ("offset 1 N=5 T=48000", xr[:5], "offset1"),
+        ("weird_floats offset 1 N=3 T=3", xw[:, :3], "offset1"),
     ]:
-        if strided:
-            xd = torch.as_tensor(np.concatenate([x, x], axis=1), device=dev)[:, :x.shape[1]]
+        N_, T_ = x.shape
+        if strided == "ld1mod4":
+            xd = torch.zeros((N_, T_ + (1 - T_) % 4), device=dev)[:, :T_]
+            xd.copy_(torch.as_tensor(np.ascontiguousarray(x)))
+        elif strided == "offset1":
+            xd = torch.zeros(N_ * T_ + 1, device=dev)[1:].view(N_, T_)
+            xd.copy_(torch.as_tensor(np.ascontiguousarray(x)))
+        elif strided:
+            xd = torch.as_tensor(np.concatenate([x, x], axis=1), device=dev)[:, :T_]
         else:
             xd = torch.as_tensor(np.ascontiguousarray(x), device=dev)
         got = bitmeter_stats.bitmeter_stats(xd)
@@ -2653,7 +2685,8 @@ def main():
         print(f"phase times: {name} kernel {times[name][0]:.4f} ms, plain version "
               f"{times[name][1]:.1f} ms (one call, in phase kernels) at "
               f"N={2 * B_MAIN} T={FS} [{gpu}]")
-    # bitmeter_stats at the main-path shape: plain, kernel, kernel, plain
+    # bitmeter_stats at the main-path shape: plain, kernel, kernel, plain;
+    # and the kernel at a live meter's few streams
     x_bit = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (B_MAIN, FS), dtype=np.float32) * np.float32(0.1), device=dev)
     ms_k, ms_p = [], []
@@ -2663,9 +2696,11 @@ def main():
         else:
             ms_p.append(cuda_ms(lambda: bitmeter_stats.bitmeter_stats_reference(x_bit), 3))
     times["bitmeter_stats"] = (statistics.mean(ms_k), statistics.mean(ms_p))
+    bit_small = {n: cuda_ms(lambda: bitmeter_stats.bitmeter_stats(x_bit[:n]), 20) for n in (1, 8)}
     print(f"phase times: bitmeter_stats kernel {times['bitmeter_stats'][0]:.4f} ms (medians "
           f"{ms_k}), plain version {times['bitmeter_stats'][1]:.4f} ms (medians {ms_p}) at "
-          f"N={B_MAIN} T={FS} [{gpu}]")
+          f"N={B_MAIN} T={FS}; the kernel at N=1 {bit_small[1]:.4f} ms, N=8 "
+          f"{bit_small[8]:.4f} ms [{gpu}]")
     n_chunks = 60
     for name, batch in [("dBTPstereo", (B_MAIN, 2)), ("BBCstereo", (B_MAIN, 2)),
                         ("DINstereo", (B_MAIN, 2)), ("BBCM6", (B_MAIN,))]:
@@ -2834,6 +2869,8 @@ def main():
         "bound_ms": bounds["bitmeter_stats"][0],
         "bound_by": bounds["bitmeter_stats"][1],
         "library_ms": None,
+        "ms_n1": bit_small[1],  # a live meter's few streams, T = 48000
+        "ms_n8": bit_small[8],
     }, {
         "name": "spectrum_fused",
         "route": "cuda",

@@ -93,13 +93,13 @@ def _bitmeter_stats_cuda(x: torch.Tensor) -> dict:
     if x.stride(1) != 1 or (N > 1 and x.stride(0) < T):
         raise ValueError("x must have unit stride along time (rows may be strided)")
     device = x.device
-    i32 = dict(dtype=torch.int32, device=device)
-    hit = torch.zeros((N, NPOS), **i32)
-    one = torch.zeros((N, NPOS), **i32)
-    dset = torch.zeros((N, NMAN), **i32)
-    flags = torch.zeros((len(FLAGS), N), **i32)
-    vmin = torch.full((N,), torch.inf, dtype=torch.float32, device=device)
-    vmax = torch.zeros((N,), dtype=torch.float32, device=device)
+    # one allocation, no fill: the kernel writes every element
+    buf = torch.empty(N * (2 * NPOS + NMAN + len(FLAGS) + 2), dtype=torch.int32, device=device)
+    hit, one, dset, flags, vmin, vmax = torch.split(
+        buf, [N * NPOS, N * NPOS, N * NMAN, len(FLAGS) * N, N, N])
+    hit, one, dset = hit.view(N, NPOS), one.view(N, NPOS), dset.view(N, NMAN)
+    flags = flags.view(len(FLAGS), N)
+    vmin, vmax = vmin.view(torch.float32), vmax.view(torch.float32)
     lib = build.kernels()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

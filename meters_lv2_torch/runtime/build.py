@@ -158,7 +158,7 @@ def kernels() -> ctypes.CDLL:
         f.argtypes = (
             [vp, ci]  # x (device), row stride
             + [ci] * 2  # N, T
-            + [vp] * 6  # hit, one, dset, flags, vmin, vmax (device, pre-filled)
+            + [vp] * 6  # hit, one, dset, flags, vmin, vmax (device, written in full)
             + [vp]  # cudaStream_t
         )
         f = lib.spectrum_fused_launch

@@ -277,14 +277,48 @@ def _bit_rows(rng, N, T, weird):
     return x
 
 
-@pytest.mark.parametrize("N,T,weird,strided", [
-    (3, 2048, True, False), (5, 1000, False, True), (4, 1, False, False),
-    (2, 9000, True, True),  # three chunks, the last partial
+@pytest.mark.parametrize("N,T,kind,layout", [
+    (3, 2048, "weird", "contiguous"), (5, 1000, "gauss", "strided"), (4, 1, "gauss", "contiguous"),
+    (2, 9000, "weird", "strided"),
+    (1, 48000, "gauss", "contiguous"), (8, 48000, "gauss", "contiguous"),  # a live meter's
+    (3, 48000, "square", "contiguous"),  # one exponent a row
+    (3, 48000, "silence", "contiguous"), (2, 48000, "denormal", "contiguous"),
+    (2, 8192, "every_exponent", "contiguous"),  # every lane its own group
+    (3, 30000, "diverse", "strided"), (3, 30000, "loud", "contiguous"),
+    # 512-sample warp-blocks, 4096-sample CTA rounds, and N=1's 8-CTA
+    # cluster slices of 4096 at T = 32768
+    (2, 511, "gauss", "contiguous"), (2, 513, "gauss", "contiguous"),
+    (2, 4095, "gauss", "contiguous"), (2, 4097, "diverse", "contiguous"),
+    (1, 32767, "gauss", "contiguous"), (1, 32769, "gauss", "contiguous"),
+    (3, 3, "gauss", "contiguous"), (3, 3, "weird", "offset1"),
+    (4, 4096, "gauss", "ld1mod4"), (4, 4096, "gauss", "offset1"),
+    (5, 48000, "loud", "ld1mod4"), (2, 9001, "silence", "offset1"),
 ])
-def test_bitmeter_stats_kernel_matches_plain(cuda, N, T, weird, strided):
-    """Every field exact: integer counts are order-free, min/max exact."""
-    x = _bit_rows(np.random.default_rng(N + T), N, T, weird)
-    xd = torch.as_tensor(np.concatenate([x, x], axis=1) if strided else x, device=cuda)[:, :T]
+def test_bitmeter_stats_kernel_matches_plain(cuda, N, T, kind, layout):
+    """Every field exact (integer counts are order-free, min/max exact), on
+    each input kind of test_torch_bitmeter_body.bitmeter_rows and
+    tests/signals.py's weird_floats rows, at the kernel's block and slice
+    edges, with rows strided, with a row stride of 1 mod 4 elements (rows
+    not 16-byte aligned) and with a tensor starting one element into its
+    storage."""
+    if kind == "weird":
+        x = _bit_rows(np.random.default_rng(N + T), N, T, True)
+    else:
+        from test_torch_bitmeter_body import bitmeter_rows
+
+        x = bitmeter_rows(kind, N, T, seed=N + T)
+    if layout == "strided":
+        xd = torch.as_tensor(np.concatenate([x, x], axis=1), device=cuda)[:, :T]
+    elif layout == "ld1mod4":
+        ld = T + (1 - T) % 4
+        xd = torch.zeros((N, ld), device=cuda)[:, :T]
+        xd.copy_(torch.as_tensor(x))
+        assert xd.stride(0) % 4 == 1
+    elif layout == "offset1":
+        xd = torch.zeros(N * T + 1, device=cuda)[1:].view(N, T)
+        xd.copy_(torch.as_tensor(x))
+    else:
+        xd = torch.as_tensor(x, device=cuda)
     n0 = bitmeter_stats.launch_count
     got = bitmeter_stats.bitmeter_stats(xd)
     ref = bitmeter_stats.bitmeter_stats_reference(xd)
