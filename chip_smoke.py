@@ -23,7 +23,9 @@ Phases, each printed on its own line; any failure exits non-zero:
               shape, at N=1 and 8, on one-exponent, silent, denormal,
               exponent-diverse and every-exponent rows, at its block and
               cluster-slice edges +-1, at T=3, and on rows not 16-byte
-              aligned; the ballistics envelope body (the PPM
+              aligned; surround_fused at B=256, 8 and 1 (C=5 and 8,
+              T=48000) with and without NaN/+-Inf samples, stream 0's NaN
+              reaching every pair; the ballistics envelope body (the PPM
               meters' default) against its plain version and the serial
               kernel (N=512 T=48000 with and without track_peak,
               adversarial rows, and 600 rows of T=1000 with NaN and +-Inf
@@ -94,7 +96,8 @@ Phases, each printed on its own line; any failure exits non-zero:
               surround meters also the host's enqueue time and the device
               time of an update under torch.profiler); stft_fused also
               against torch.fft.rfft of the windowed frames and at B = 1
-              and 8, bitmeter_stats also at N = 1 and 8, and the three
+              and 8, bitmeter_stats and surround_fused also at B = 1 and
+              8, and the three
               analyzers' x-realtime over 60 blocks with their enqueue and
               device time per update; each variant against its default,
               and surround5 and surround8 x-realtime with the wide layout
@@ -910,7 +913,8 @@ def surround_blocks(C, blocks):
 
 def surround_args(C, B, T, seed, dev, pairs=None, inject=False):
     """Arguments of surround_fused.fused_core on ``dev``: x [B, C, T] of
-    0.3 N(0, 1), carried non-zero K-meter and lowpass states, the routing of
+    0.3 N(0, 1) (with ``inject``, NaN, +Inf and -Inf samples: stream 0 has
+    a NaN), carried non-zero K-meter and lowpass states, the routing of
     ``pairs`` (default: the meter's adjacent pairs), the meter's weights."""
     import torch
 
@@ -920,7 +924,10 @@ def surround_args(C, B, T, seed, dev, pairs=None, inject=False):
     g = np.random.default_rng(seed)
     x = (0.3 * g.standard_normal((B, C, T))).astype(np.float32)
     if inject:
-        x[0, C - 1, 300], x[1, 1, 700], x[2, 0, 130] = np.nan, np.inf, -np.inf
+        x[0, C - 1, 300], x[min(1, B - 1), 1, 700], x[min(2, B - 1), 0, 130] = (
+            np.nan, np.inf, -np.inf)
+        if T >= FS:  # a stream's last block, and the middle of a stream
+            x[B - 1, 2, T - 200], x[B // 2, C - 2, T // 2 + 77] = np.inf, np.nan
     kz = torch.as_tensor((0.01 * g.random((B, C, 2))).astype(np.float32), device=dev)
     zl = torch.as_tensor((0.05 * g.standard_normal((B, C, 1))).astype(np.float32), device=dev)
     pr = None if pairs is None else torch.tensor(pairs, dtype=torch.float32, device=dev)
@@ -965,25 +972,31 @@ def compare_surround(got, ref, tag):
 def surround_kernel_cases(dev):
     """surround_fused against its plain version: B=5 C=5 T=1280 with
     carried states and runtime pairs, C=5 and C=8 at the main-path shape
-    (surround5's and surround8's), and NaN / +Inf / -Inf samples.  Returns
-    (max abs error at the main-path shapes, breaches)."""
+    (surround5's and surround8's) and at a live meter's B=1 and B=8, and
+    NaN / +Inf / -Inf samples at B=1, 5, 8 and 256, where stream 0's NaN
+    must reach every pair.  Returns (max abs error at the main-path
+    shapes, breaches)."""
     import torch
 
     from meters_lv2_torch.ops import surround_fused
 
     failures, main_err = [], 0.0
-    for tag, C, B, T, pairs, inject in [
-        ("B=5 C=5 T=1280, pairs 0:0 1:1 0:1 2:3", 5, 5, 1280, [[0, 0], [1, 1], [0, 1], [2, 3]],
-         False),
-        (f"main-path shape B={B_MAIN} C=5 T={FS}", 5, B_MAIN, FS, None, False),
-        (f"main-path shape B={B_MAIN} C=8 T={FS}", 8, B_MAIN, FS, None, False),
-        ("NaN/+Inf/-Inf in x, B=5 C=5 T=1280", 5, 5, 1280, None, True),
-    ]:
+    cases = [("B=5 C=5 T=1280, pairs 0:0 1:1 0:1 2:3", 5, 5, 1280,
+              [[0, 0], [1, 1], [0, 1], [2, 3]], False),
+             ("NaN/+Inf/-Inf in x, B=5 C=5 T=1280", 5, 5, 1280, None, True)]
+    for B in (B_MAIN, 8, 1):
+        for C in (5, 8):
+            tag = "main-path shape" if B == B_MAIN else "a live meter's streams"
+            cases.append((f"{tag} B={B} C={C} T={FS}", C, B, FS, None, False))
+            cases.append((f"NaN/+Inf/-Inf in x, B={B} C={C} T={FS}", C, B, FS, None, True))
+    for tag, C, B, T, pairs, inject in cases:
         args = surround_args(C, B, T, B + C, dev, pairs, inject)
         got = surround_fused.fused_core(*args)
         ref = surround_fused.fused_core_reference(*args)
         torch.cuda.synchronize()
         err, errs = compare_surround(got, ref, tag)
+        if inject and bool(torch.isfinite(got[3][0]).any()):
+            errs.append("stream 0's NaN did not reach every pair")
         failures += [f"surround_fused {tag}: {e}" for e in errs]
         if B == B_MAIN:
             main_err = max(main_err, err)
@@ -1143,28 +1156,31 @@ def stats_profile(m, st, xs, enqueue, n, profiled):
 
 
 def surround_times(dev, blocks3, gpu):
-    """surround_fused against its plain version at B=256 T=48000 for C=5
-    and C=8 (plain, kernel, kernel, plain; one call at a time, as the other
-    kernels are timed), and for surround5 and surround8 the x-realtime over
-    60 blocks at B=256, the host's time to enqueue an update and the device
-    time of one (torch.profiler).  Returns {C: (kernel ms, plain ms)}."""
+    """surround_fused against its plain version at T=48000 for C=5 and C=8
+    at B=256, 8 and 1 (plain, kernel, kernel, plain; one call at a time, as
+    the other kernels are timed), and for surround5 and surround8 the
+    x-realtime over 60 blocks at B=256, the host's time to enqueue an update
+    and the device time of one (torch.profiler).  Returns {C: (kernel ms,
+    plain ms)} at B=256."""
     import torch
 
     import meters_lv2_torch
     from meters_lv2_torch.ops import surround_fused
 
     ms = {}
-    for C in (5, 8):
-        args = surround_args(C, B_MAIN, FS, 7, dev)
+    for B, C in ((B_MAIN, 5), (B_MAIN, 8), (8, 5), (8, 8), (1, 5), (1, 8)):
+        args = surround_args(C, B, FS, 7, dev)
         ms_k, ms_p = [], []
         for w in "pkkp":
             if w == "k":
                 ms_k.append(cuda_ms(lambda: surround_fused.fused_core(*args), 10))
             else:
                 ms_p.append(cuda_ms(lambda: surround_fused.fused_core_reference(*args), 3))
-        ms[C] = (statistics.mean(ms_k), statistics.mean(ms_p))
-        print(f"phase times: surround_fused kernel {ms[C][0]:.4f} ms (medians {ms_k}), plain "
-              f"version {ms[C][1]:.4f} ms (medians {ms_p}) at B={B_MAIN} C={C} P=4 T={FS} [{gpu}]")
+        if B == B_MAIN:
+            ms[C] = (statistics.mean(ms_k), statistics.mean(ms_p))
+        print(f"phase times: surround_fused kernel {statistics.mean(ms_k):.4f} ms (medians "
+              f"{ms_k}), plain version {statistics.mean(ms_p):.4f} ms (medians {ms_p}) at B={B} "
+              f"C={C} P=4 T={FS} [{gpu}]")
         del args
     for name in ("surround5", "surround8"):
         m = meters_lv2_torch.create(name, FS)

@@ -142,10 +142,11 @@ def _fused_core_cuda(x, km_z, zl, sel_a, sel_b, km_sys, lp_sys, w1, wv, wide=Fal
         raise ValueError("x and wv must be 16-byte aligned (the kernel reads float4)")
 
     km_w, lp_w = km_op.tensors(device), lp_op.tensors(device)
-    kmz = torch.empty((B, C, 2), dtype=torch.float32, device=device)
-    zlo = torch.empty((B, C, 1), dtype=torch.float32, device=device)
-    pk = torch.empty((B, C), dtype=torch.float32, device=device)
-    pacc = torch.empty((B, P, 3), dtype=torch.float32, device=device)
+    # one allocation for the four outputs, which the kernel writes in full
+    buf = torch.empty(B * (4 * C + 3 * P), dtype=torch.float32, device=device)
+    kmz, zlo, pk, pacc = (t.view(s) for t, s in zip(
+        torch.split(buf, (2 * B * C, B * C, B * C, 3 * B * P)),
+        ((B, C, 2), (B, C, 1), (B, C), (B, P, 3))))
     lib = build.kernels()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -581,6 +581,32 @@ def test_surround_kernel_matches_plain(cuda, C, B, T, pairs, nonfinite):
     _assert_surround_close(got, ref)
 
 
+@pytest.mark.parametrize("T", [128, 1280, 48000])
+@pytest.mark.parametrize("C", [3, 5, 8])
+@pytest.mark.parametrize("B", [1, 8, 256])
+def test_surround_kernel_shapes(cuda, B, C, T):
+    """A stream over a cluster of CTAs (8 at B = 1 and 8 over 375 blocks,
+    one a block on short blocks) and one CTA a stream at B = 256, every
+    width, NaN / +-Inf samples where there are three streams to carry
+    them."""
+    args = _surround_args(C, B, T, B + C + T, cuda, None, B >= 3 and T >= 1280)
+    got = surround_fused.fused_core(*args)
+    ref = surround_fused.fused_core_reference(*args)
+    torch.cuda.synchronize()
+    _assert_surround_close(got, ref)
+
+
+@pytest.mark.parametrize("B,C", [(1, 8), (8, 5), (256, 8)])
+def test_surround_kernel_repeats_bit_identical(cuda, B, C):
+    """Every sum is taken in a fixed order: two launches, the same bits."""
+    args = _surround_args(C, B, 48000, 5, cuda, None, B >= 3)
+    first = [t.clone() for t in surround_fused.fused_core(*args)]
+    again = surround_fused.fused_core(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.parametrize("name", ["surround5", "surround8"])
 def test_surround_meter_on_card_matches_cpu(cuda, name):
     """1000-sample blocks (kernel bulk and a plain tail) with the pairs

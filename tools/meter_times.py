@@ -9,9 +9,11 @@ turns (parent, change, change, parent).  Each meter runs as chip_smoke.py's
 phase times runs it: B=256 streams, 60 updates cycling over 12 flat 1 s
 blocks of 0.1 N(0, 1) samples (48 kHz, stereo [256, 2, 48000]; channel 0
 for the mono-input meters; EBUr128 takes them flat, [256, 96000], as
-bench.py does), best of 2 runs ended by a host copy, with the host's
-enqueue time per update and torch.profiler's device time per update over
-10 updates.  One line per meter, then the card's name and power limit.
+bench.py does; surround5 and surround8 take [256, C, 48000] beds derived
+on the card from them, as chip_smoke.py's surround_blocks does), best of 2
+runs ended by a host copy, with the host's enqueue time per update and
+torch.profiler's device time per update over 10 updates.  One line per
+meter, then the card's name and power limit.
 """
 
 import argparse
@@ -26,6 +28,7 @@ STEREO = {"dBTPstereo": (B, 2), "BBCstereo": (B, 2), "DINstereo": (B, 2), "dr14s
 MONO_INPUT = {"bitmeter", "SigDistHist"}
 DOWNMIX = {"spectr30stereo"}  # update(..., stereo=True): the [B, 2, T] block downmixed
 FLAT = {"EBUr128"}  # update(..., flat=True) on [B, 2 T]: the main path
+SURROUND = {"surround5": 5, "surround8": 8}
 
 
 def main():
@@ -44,6 +47,9 @@ def main():
     sys.path.insert(0, os.path.abspath(args.root))
     import meters_lv2_torch
 
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import surround_blocks  # the beds chip_smoke.py derives
+
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     blocks = [torch.as_tensor(rng.standard_normal((B, 2, FS), dtype=np.float32) * np.float32(0.1),
@@ -51,8 +57,9 @@ def main():
     for name in args.meters:
         m = meters_lv2_torch.create(name, FS)
         batch = STEREO.get(name, (B,))
-        xs = [b[:, 0] if name in MONO_INPUT else b.reshape(B, -1) if name in FLAT else b
-              for b in blocks]
+        xs = (surround_blocks(SURROUND[name], blocks) if name in SURROUND else
+              [b[:, 0] if name in MONO_INPUT else b.reshape(B, -1) if name in FLAT else b
+               for b in blocks])
         kw = {"stereo": True} if name in DOWNMIX else {"flat": True} if name in FLAT else {}
         runs, enqueue = [], []
         for _ in range(2):
