@@ -84,7 +84,31 @@ Phases, each printed on its own line; any failure exits non-zero:
               phase wheel, stereoscope, goniometer), the DIN, BBC and BBC
               M-6 fixtures on the envelope body (its launches counted);
               then the surround fixtures through the wide layout;
-  6. times    each kernel vs its plain version, truepeak_fused's envelope
+  6. ingest   the slice above the meters: 256 stereo WAVs of 4-12 s (a
+              quarter at 44.1 kHz; PCM16, PCM24 and float32; most lengths
+              not multiples of 4) and 64 five-channel ones written from a
+              seed, decoded by the native library (which must load) and
+              load_files(target_rate=48000) with its resampling on the
+              card (and once on CPU tensors, timed and compared); every
+              non-display meter of the CLI's --meters all for stereo
+              through MeterPipeline.run_stream_ragged at chunk 48000 (the
+              host-to-device copy, both phases on the device timeline and
+              the host's enqueue and the collection's x-realtime in the
+              meters' first use, as the CLI runs them; a warm pass with
+              its x-realtime and each meter's host time; then one
+              torch.profiler pass of the same collection for each meter's
+              device time and the device's busy share of that pass),
+              every kernel's launches equal to
+              the counts predicted from the lengths, and R128 with
+              surround over the 5-channel files (held the same way);
+              files 0-3, the shortest and the longest held
+              against each file alone on the card and against CPU runs (in
+              worker processes); stream_pipelined against stream bit for
+              bit; _run_display_meters launching stft_fused once for the
+              phase wheel and once for the stereoscope; and
+              python -m meters_lv2_torch --meters all --json on 8 files
+              against the same with --cpu;
+  7. times    each kernel vs its plain version, truepeak_fused's envelope
               and serial bodies alternated at N=512 and N=8,192, the
               ballistics kernel's envelope and serial bodies alternated at
               N=512 and at 4,224 to 33,792 rows, and main-path x-realtime
@@ -105,7 +129,8 @@ Phases, each printed on its own line; any failure exits non-zero:
 
 The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
 sample on the CPU) go to worker processes at the start and are collected in
-phase 4, so they overlap the card's work.  The last lines are a JSON
+phase 4, so they overlap the card's work; phase ingest's CPU runs and CLI
+runs overlap its checks on the card the same way, after its timed runs.  The last lines are a JSON
 summary of the kernels, the nvidia-smi name and power limit, and
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.  It imports no JAX.
@@ -118,6 +143,7 @@ import math
 import multiprocessing
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -2135,6 +2161,553 @@ class ProcessAsUpdate:
 POOL = None  # worker processes of the CPU runs
 
 
+# -- phase ingest: WAV files through load_files, the pipeline and the CLI --
+INGEST_N, INGEST_N5 = 256, 64  # stereo and 5-channel files
+INGEST_SECONDS, INGEST_SECONDS5 = (4.0, 12.0), (4.0, 8.0)  # their lengths
+INGEST_CHUNK = FS  # run_stream_ragged's step, 1 s
+INGEST_CHECK = (0, 1, 2, 3)  # files held per file and against CPU runs, with
+# the shortest and the longest
+# ingest bars (the port's ragged test, tests/test_torch_pipeline.py): R128's
+# hist_m bin-exact and its loudness within 1e-4; K20's rms rtol 1e-5; the
+# correlation atol 1e-6; every other readout: integer leaves exact, float
+# leaves within 1e-4 + 1e-4 |value| (0.001 dB of a linear level, 1e-4 of a
+# dB one; the card against the CPU reads ~2e-6 dB in phase main), with the
+# same non-finite entries.  The CLI's JSON, card against --cpu, at the same
+# bar, but the phase wheel's and the stereoscope's maxima over every bin
+# within INGEST_DISPLAY_TOL: they range over bins near the threshold, where
+# the analyzers' bars (tests/test_torch_cuda.py::stft_close) hold no phase
+# or position, and a phase at +-pi may land on the other side of the wrap.
+INGEST_DISPLAY_TOL = 1e-2
+INGEST_R128_KEYS = ("loudness_M", "loudness_S", "max_M", "integrated", "dbtp")
+
+
+def write_pcm(path, data, rate, bits):
+    """Planar float [C, T] as a WAV of PCM16, PCM24 or float32 (bits 16, 24,
+    32), written with numpy: the native codec writes a sample at a time and
+    no 24-bit."""
+    inter = np.ascontiguousarray(np.asarray(data, np.float32).T)
+    if bits == 32:
+        payload, fmt = inter.astype("<f4").tobytes(), 3
+    else:
+        scale = np.float32(32767 if bits == 16 else 8388607)
+        v = np.round(np.clip(inter, -1, 1) * scale).astype("<i4")
+        payload = v.view(np.uint8).reshape(-1, 4)[:, : bits // 8].tobytes()
+        fmt = 1
+    c = inter.shape[1]
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(payload)) + b"WAVEfmt ")
+        f.write(struct.pack("<IHHIIHH", 16, fmt, c, rate, rate * c * bits // 8, c * bits // 8,
+                            bits))
+        f.write(b"data" + struct.pack("<I", len(payload)) + payload)
+
+
+def ingest_write(tmp, tag, n, C, lo_s, hi_s, seed):
+    """n C-channel WAVs of lo_s..hi_s seconds (lengths drawn per sample, so
+    most are not multiples of 4), a quarter at 44.1 kHz, PCM16, PCM24 and
+    float32 in turn: a tone per channel, at a level and frequency drawn per
+    file and channel, over 0.05 N(0,1) noise taken at a random offset of
+    one seeded noise track, with a quieter first eighth.  Returns the
+    paths."""
+    rng = np.random.default_rng(seed)
+    noise = np.float32(0.05) * rng.standard_normal((C, int(hi_s * FS) + FS), dtype=np.float32)
+    paths = []
+    for i in range(n):
+        fs = 44100 if i % 4 == 3 else FS
+        L = int(rng.integers(int(lo_s * fs), int(hi_s * fs) + 1))
+        off = int(rng.integers(0, FS))
+        t = np.arange(L, dtype=np.float32) / np.float32(fs)
+        amp = rng.uniform(0.05, 0.5, (C, 1)).astype(np.float32)
+        f0 = rng.uniform(60.0, 5000.0, (C, 1)).astype(np.float32)
+        x = amp * np.sin(np.float32(2 * np.pi) * f0 * t) + noise[:, off : off + L]
+        x[:, : L // 8] *= np.float32(0.1)
+        p = os.path.join(tmp, f"{tag}{i:03d}.wav")
+        write_pcm(p, x, fs, (16, 24, 32)[i % 3])
+        paths.append(p)
+    return paths
+
+
+def ingest_pipeline(names, C, fs):
+    from meters_lv2_torch.__main__ import build_meter
+    from meters_lv2_torch.parallel.pipeline import MeterPipeline
+
+    return MeterPipeline({n: build_meter(n, fs, C) for n in names}, nchan=C)
+
+
+def ingest_cpu_run(npy, lengths, names, C, fs, chunk):
+    """The pipeline of `names` over the files in `npy` ([B, C, T]) on CPU
+    tensors, ragged; (host readouts, R128's hist_m or None).  Runs in a
+    worker process."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    from meters_lv2_torch.io.stream import to_host
+
+    pipe = ingest_pipeline(names, C, fs)
+    st = pipe.run_stream_ragged(pipe.init((len(lengths),), device="cpu"),
+                                torch.from_numpy(np.load(npy)), np.asarray(lengths), chunk)
+    hist = st["r128"].hist_m.numpy() if "r128" in st else None
+    return to_host(pipe.read(st)[0]), hist
+
+
+def readout_leaves(o, path=""):
+    if isinstance(o, dict):
+        for k, v in sorted(o.items()):
+            yield from readout_leaves(v, f"{path}.{k}")
+    else:
+        yield path, np.asarray(o)
+
+
+def ingest_compare(got, i, want, j, tag):
+    """Row i of batched host readouts `got` against row j of `want`, meter
+    by meter, at the ingest bars; (the largest share of its bar that a
+    float difference takes, errors)."""
+    errs, worst = [], 0.0
+    for name in want:
+        lg, lw = list(readout_leaves(got[name])), list(readout_leaves(want[name]))
+        if len(lg) != len(lw):
+            errs.append(f"{tag} {name}: readouts differ")
+        for (k, a), (k2, b) in zip(lg, lw):
+            a, b = a[i], b[j]
+            key = f"{tag} {name}{k}"
+            if k != k2 or a.shape != b.shape:
+                errs.append(f"{key}: leaves differ")
+            elif a.dtype.kind in "iub":
+                if not np.array_equal(a, b):
+                    errs.append(f"{key}: integer leaf differs")
+            elif not np.array_equal(np.isfinite(a), np.isfinite(b)) or not np.array_equal(
+                    a[~np.isfinite(a)], b[~np.isfinite(b)]):
+                errs.append(f"{key}: non-finite entries differ")
+            else:
+                fin = np.isfinite(b)
+                d = np.abs(a[fin].astype(np.float64) - b[fin])
+                if name == "r128" and k.lstrip(".") in INGEST_R128_KEYS:
+                    bar = np.full(d.shape, 1e-4)
+                elif name == "k20" and k == ".rms":
+                    bar = 1e-5 * np.abs(b[fin])
+                elif name == "cor":
+                    bar = np.full(d.shape, 1e-6)
+                else:
+                    bar = 1e-4 + 1e-4 * np.abs(b[fin])
+                if d.size:
+                    worst = max(worst, float((d / np.maximum(bar, 1e-30)).max()))
+                    if not (d <= bar).all():
+                        errs.append(f"{key}: {float((d - bar).max()):.3g} over its bar")
+    return worst, errs
+
+
+def json_compare(a, b, path, errs):
+    """The CLI's JSON, card against --cpu (ingest bars)."""
+    if isinstance(b, dict):
+        if set(a) != set(b):
+            errs.append(f"{path}: keys differ")
+            return
+        for k in b:
+            json_compare(a[k], b[k], f"{path}.{k}", errs)
+    elif isinstance(b, list):
+        if not isinstance(a, list) or len(a) != len(b):
+            errs.append(f"{path}: lengths differ")
+            return
+        for n, (u, v) in enumerate(zip(a, b)):
+            json_compare(u, v, f"{path}[{n}]", errs)
+    elif isinstance(b, float) and a is not None:
+        display = (".phasewheel." in path or ".stereoscope." in path) and path.endswith(".max")
+        bar = INGEST_DISPLAY_TOL if display else 1e-4 + 1e-4 * abs(b)
+        if not abs(a - b) <= bar:
+            errs.append(f"{path}: {a} vs {b}")
+    elif a != b:
+        errs.append(f"{path}: {a} vs {b}")
+
+
+def wrap_meters(pipe, host, annotate):
+    """Wrap each meter's update in `pipe` to add its host ms to host[name]
+    (the launches are asynchronous, so this is the enqueue) and, with
+    `annotate`, to run inside a torch.profiler range "meter/<name>".
+    Returns the function that takes the wrappers off."""
+    from torch.profiler import record_function
+
+    for name, m in pipe.meters.items():
+        def upd(*a, _f=m.update, _n=name, **kw):
+            t0 = time.perf_counter()
+            with record_function(f"meter/{_n}") if annotate else contextlib.nullcontext():
+                r = _f(*a, **kw)
+            host[_n] += (time.perf_counter() - t0) * 1e3
+            return r
+
+        m.update = upd
+
+    def undo():
+        for m in pipe.meters.values():
+            del m.update
+
+    return undo
+
+
+def collection_profile(pipe, st, x, lengths, chunk, trace_path):
+    """One torch.profiler pass of the collection `pipe` (already run once)
+    from state `st`, each meter's updates in a range of its own.  A device
+    event goes to the meter whose range holds the runtime call that
+    launched it, by the trace's correlation ids (which kernels launched
+    through ctypes have too: no CPU op owns them).  Returns ({meter: host
+    ms under the profiler}, {meter: device ms}, device ms of no meter's
+    range, device busy ms (the union of the device events' intervals), the
+    pass's wall ms)."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    host = dict.fromkeys(pipe.meters, 0.0)
+    undo = wrap_meters(pipe, host, annotate=True)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.run_stream_ragged(st, x, lengths, chunk)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"][6:]) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"].startswith("meter/"))
+    starts = [r[0] for r in ranges]
+    dev = dict.fromkeys(pipe.meters, 0.0)
+    outside = 0.0
+    spans = []
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        k = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
+        if k >= 0 and ts <= ranges[k][1]:
+            dev[ranges[k][2]] += e["dur"] / 1e3
+        else:
+            outside += e["dur"] / 1e3
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return host, dev, outside, busy / 1e3, wall_ms
+
+
+def predicted_launches(lengths, chunk, per_update):
+    """Each kernel's launches in run_stream_ragged over streams of
+    `lengths` (multiples of 4) at `chunk`: phase 1 takes the longest
+    stream's whole chunks, phase 2 one tail level 4 << k for each bit
+    that some stream's tail has.  per_update(s) gives the launches of one
+    update of s samples by kernel; returns (counts, steps, levels)."""
+    lengths = np.asarray(lengths)
+    n_steps = int((lengths // chunk).max())
+    q = (lengths % chunk) // 4
+    levels = [4 << k for k in range(max(chunk // 4 - 1, 1).bit_length()) if (q >> k & 1).any()]
+    want = {}
+    for s, n in [(chunk, n_steps)] + [(s, 1) for s in levels]:
+        for k, c in per_update(s).items():
+            want[k] = want.get(k, 0) + n * c
+    return want, n_steps, levels
+
+
+def ingest_phase(dev, gpu, reset_counts, launch_counts):
+    """The phase ingest (see the module docstring); returns the launches of
+    each kernel in its pipeline runs, by kernels-line name."""
+    import tempfile
+
+    import torch
+
+    from meters_lv2_torch.__main__ import DISPLAY_METERS, _run_display_meters, applicable_meters
+    from meters_lv2_torch.io import batch as io_batch
+    from meters_lv2_torch.io.stream import chunk_array, stream, stream_pipelined, to_host
+    from meters_lv2_torch.runtime import native
+    from meters_lv2_torch.utils.interop import state_to_numpy
+
+    names = [n for n in applicable_meters(2) if n not in DISPLAY_METERS]
+    pool = None
+    procs = []
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as tmp:
+            t0 = time.perf_counter()
+            paths = ingest_write(tmp, "s", INGEST_N, 2, *INGEST_SECONDS, 17)
+            paths5 = ingest_write(tmp, "m", INGEST_N5, 5, *INGEST_SECONDS5, 18)
+            cli_paths = ingest_write(tmp, "c", 8, 2, 1.0, 2.0, 19)
+            write_s = time.perf_counter() - t0
+            if native.load() is None:
+                fail("ingest: the native WAV library did not load: "
+                     + (native.BUILD_DIR / "build.log").read_text()[-2000:])
+            t0 = time.perf_counter()
+            decoded = native.wav_read_batch(paths)
+            decode_s = time.perf_counter() - t0
+            n44 = sum(r == 44100 for _, r in decoded)
+            del decoded
+            t0 = time.perf_counter()
+            batch = io_batch.load_files(paths, target_rate=FS, device=dev)
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            batch_cpu = io_batch.load_files(paths, target_rate=FS, device="cpu")
+            load_cpu_s = time.perf_counter() - t0
+            load_err = float(np.abs(batch.data - batch_cpu.data).max())
+            if batch.data.shape != batch_cpu.data.shape or not load_err <= 1e-6:
+                fail(f"ingest: load_files resampling on the card differs from the CPU by {load_err}")
+            del batch_cpu
+            B, C, T = batch.data.shape
+            chunk = INGEST_CHUNK
+            Tpad = -(-T // chunk) * chunk
+            x = np.zeros((B, C, Tpad), np.float32)
+            x[:, :, :T] = batch.data
+            lengths = batch.lengths // 4 * 4
+            seconds = float(lengths.sum()) / FS
+            print(f"phase ingest: wrote {B} stereo files ({n44} at 44.1 kHz; PCM16, PCM24, "
+                  f"float32), {INGEST_N5} 5-channel and 8 short ones in {write_s:.1f} s; native "
+                  f"decode {decode_s:.3f} s, load_files(target_rate=48000) {load_s:.3f} s "
+                  f"(decode, resample on the card, assemble; with the resampling on CPU "
+                  f"tensors {load_cpu_s:.3f} s, max |difference| {load_err:.3g}) for "
+                  f"{seconds:.1f} stream-seconds; batch "
+                  f"[{B}, {C}, {T}], lengths {int(lengths.min())}..{int(lengths.max())} "
+                  f"[{gpu}]")
+
+            # the collection, timed: host-to-device copy, then both phases
+            pipe = ingest_pipeline(names, C, FS)
+            st0 = pipe.init((B,), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xd = torch.as_tensor(x).to(dev)
+            torch.cuda.synchronize()
+            h2d_ms = (time.perf_counter() - t0) * 1e3
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks = {}
+            update = pipe.update
+
+            def timed_update(state, xb, controls=None):
+                if xb.shape[-1] != chunk and "mid" not in marks:
+                    ev[1].record()
+                    marks["mid"] = time.perf_counter()
+                return update(state, xb, controls)
+
+            pipe.update = timed_update
+            reset_counts()
+            t0 = time.perf_counter()
+            ev[0].record()
+            st = pipe.run_stream_ragged(st0, xd, lengths, chunk)
+            if "mid" not in marks:
+                ev[1].record()
+                marks["mid"] = time.perf_counter()
+            t_enq = time.perf_counter()
+            out, _ = pipe.read(st)
+            out = to_host(out)
+            ev[2].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del pipe.update
+            counts = launch_counts()
+            p1_ms, p2_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+            def stereo_update(s):
+                # an update of s samples: the kernels take a block that is a
+                # multiple of 128 (the truepeak_fused of dBTP, DR-14 and
+                # TP+RMS), the plain tail ops a shorter one, where dBTP, DR-14
+                # and TP+RMS run the serial ballistics body; DIN, NOR, BBC, EBU
+                # and M-6 run the envelope body and the bit meter its kernel
+                # at every length
+                big = s % 128 == 0
+                return {"r128_fused": big, "truepeak_fused": 3 * big, "spectrum_fused": big,
+                        "ballistics": 3 * (not big), "ballistics_envelope": 5,
+                        "bitmeter_stats": 1}
+
+            want, n_steps, levels = predicted_launches(lengths, chunk, stereo_update)
+            n_small = sum(s % 128 != 0 for s in levels)
+            want = {k: want.get(k, 0) for k in counts}
+            if counts != want:
+                fail(f"ingest: the collection's launches {counts} are not the {want} "
+                     f"predicted from the lengths")
+            for name, key in (("r128", "integrated"), ("r128", "dbtp"), ("k20", "rms"),
+                              ("spectrum", "bands"), ("dr14", "dr_total"), ("truepeak", "peak")):
+                v = out[name][key]
+                if v.shape[0] != B or not np.isfinite(v).all():
+                    fail(f"ingest: {name} {key} not finite of {B} files")
+            xrt = seconds / wall
+            print(f"phase ingest: ok: {len(names)} meters ({','.join(names)}) over {B} files by "
+                  f"run_stream_ragged at chunk {chunk}: {n_steps} steps, {len(levels)} tail levels "
+                  f"({n_small} below 128: {[s for s in levels if s < 128]}); launches {counts}, "
+                  f"each as predicted from the lengths; host-to-device copy {h2d_ms:.1f} ms "
+                  f"({x.nbytes / 1e6:.1f} MB); device timeline phase 1 {p1_ms:.1f} ms, phase 2 "
+                  f"and read {p2_ms:.1f} ms; host enqueue phase 1 "
+                  f"{(marks['mid'] - t0) * 1e3:.1f} ms, phase 2 {(t_enq - marks['mid']) * 1e3:.1f} "
+                  f"ms; wall {wall:.3f} s (the meters' first use): {xrt:.1f} x-realtime ({seconds:.1f} stream-seconds; "
+                  f"with the copy {seconds / (wall + h2d_ms / 1e3):.1f}, with load_files too "
+                  f"{seconds / (wall + h2d_ms / 1e3 + load_s):.1f}) [{gpu}]")
+            # the timed run was the meters' first use, as in the CLI; a second
+            # pass, warm, gives each meter's host time, and a third under the
+            # profiler its device time
+            host_ms = dict.fromkeys(names, 0.0)
+            undo = wrap_meters(pipe, host_ms, annotate=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.run_stream_ragged(st0, xd, lengths, chunk)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            undo()
+            t0 = time.perf_counter()
+            prof_host, dev_ms, outside_ms, busy_ms, prof_wall_ms = collection_profile(
+                pipe, st0, xd, lengths, chunk, os.path.join(tmp, "collection_trace.json"))
+            print(f"phase ingest: a warm pass of the collection {warm:.3f} s: "
+                  f"{seconds / warm:.1f} x-realtime; by meter, host ms in its updates in that pass "
+                  f"/ device ms in one torch.profiler pass of the same collection: "
+                  + ", ".join(f"{n} {host_ms[n]:.1f} / {dev_ms[n]:.1f}" for n in names)
+                  + f"; sums {sum(host_ms.values()):.1f} / {sum(dev_ms.values()):.1f} ms "
+                  f"({outside_ms:.1f} ms of device time in no meter's range); the profiled "
+                  f"pass: wall {prof_wall_ms:.1f} ms (the warm pass's {warm * 1e3:.1f}), host "
+                  f"ms in the meters' updates {sum(prof_host.values()):.1f}, the device busy "
+                  f"{busy_ms:.1f} ms, {100 * busy_ms / prof_wall_ms:.1f} % of its wall; "
+                  f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+
+            # the checks: CPU runs in worker processes and the CLI in two
+            # subprocesses, while the card runs the per-file and other checks
+            order = np.argsort(lengths, kind="stable")
+            check = list(dict.fromkeys([*INGEST_CHECK, int(order[0]), int(order[-1])]))
+            T6 = int(max(lengths[check]))
+            x6 = np.ascontiguousarray(x[check, :, : -(-T6 // chunk) * chunk])
+            npy = os.path.join(tmp, "check.npy")
+            np.save(npy, x6)
+            t_checks = time.perf_counter()
+            pool = multiprocessing.get_context("spawn").Pool(5)
+            jobs = {n: pool.apply_async(ingest_cpu_run, (npy, lengths[check], [n], C, FS, chunk))
+                    for n in names}
+            pool.close()
+            cli = [sys.executable, "-m", "meters_lv2_torch", *cli_paths, "--meters", "all",
+                   "--json", "--target-rate", str(FS), "--chunk-seconds", "0.5"]
+            for extra in ([], ["--cpu"]):  # one intra-op thread each: the cores are shared
+                procs.append(subprocess.Popen(cli + extra, cwd=ROOT, stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE, text=True,
+                                              env={**os.environ, "OMP_NUM_THREADS": "1"}))
+
+            # per file on the card, each file alone through the same pipeline
+            worst_pf, errs = 0.0, []
+            for i in check:
+                p1 = ingest_pipeline(names, C, FS)
+                Ti = -(-int(lengths[i]) // chunk) * chunk
+                s1 = p1.run_stream_ragged(p1.init((1,), device=dev), xd[i : i + 1, :, :Ti],
+                                          lengths[i : i + 1], chunk)
+                o1 = to_host(p1.read(s1)[0])
+                if not torch.equal(st["r128"].hist_m[i].cpu(), s1["r128"].hist_m[0].cpu()):
+                    errs.append(f"file {i}: hist_m differs")
+                w, e = ingest_compare(out, i, o1, 0, f"file {i} alone on the card")
+                worst_pf, errs = max(worst_pf, w), errs + e
+            if errs:
+                fail("ingest: batch against per-file runs: " + " | ".join(errs[:10]))
+
+            # stream_pipelined against stream, bit for bit: the collection
+            # over the first 64 files' padded 1 s blocks
+            n64 = min(64, B)
+            blocks = list(chunk_array(x[:n64, :, :T], chunk))
+            pipe64 = ingest_pipeline(names, C, FS)
+            t0 = time.perf_counter()
+            sa = stream(pipe64, pipe64.init((n64,), device=dev), blocks)
+            torch.cuda.synchronize()
+            ta = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sb = stream_pipelined(pipe64, pipe64.init((n64,), device=dev), blocks, depth=2)
+            torch.cuda.synchronize()
+            tb = time.perf_counter() - t0
+            la = list(readout_leaves(state_to_numpy(sa)))
+            lb = list(readout_leaves(state_to_numpy(sb)))
+            if len(la) != len(lb) or not all(
+                    k == k2 and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+                    for (k, a), (k2, b) in zip(la, lb)):
+                fail("ingest: stream_pipelined differs from stream on the card")
+
+            # 5-channel files: R128 and surround
+            b5 = io_batch.load_files(paths5, target_rate=FS, device=dev)
+            len5 = b5.lengths // 4 * 4
+            T5 = -(-b5.data.shape[-1] // chunk) * chunk
+            x5 = torch.zeros((INGEST_N5, 5, T5), device=dev)
+            x5[..., : b5.data.shape[-1]] = torch.as_tensor(b5.data, device=dev)
+            p5 = ingest_pipeline(["r128", "surround"], 5, FS)
+            reset_counts()
+            s5 = p5.run_stream_ragged(p5.init((INGEST_N5,), device=dev), x5, len5, chunk)
+            o5 = to_host(p5.read(s5)[0])
+            c5 = launch_counts()
+            want5, _, _ = predicted_launches(len5, chunk, lambda s: {
+                "r128_fused": s % 128 == 0, "surround_fused": s % 128 == 0})
+            want5 = {k: want5.get(k, 0) for k in c5}
+            if c5 != want5:
+                fail(f"ingest: the 5-channel collection's launches {c5} are not the {want5} "
+                     f"predicted from the lengths")
+            if not np.isfinite(o5["surround"]["level"]).all() or o5["surround"]["level"].shape != (
+                    INGEST_N5, 5):
+                fail("ingest: surround levels not finite of shape (64, 5)")
+            w5, e5 = 0.0, []
+            for i in (0, int(np.argmin(len5)), int(np.argmax(len5))):
+                Ti = -(-int(len5[i]) // chunk) * chunk
+                q5 = ingest_pipeline(["r128", "surround"], 5, FS)
+                r5 = to_host(q5.read(q5.run_stream_ragged(q5.init((1,), device=dev),
+                                                          x5[i : i + 1, :, :Ti], len5[i : i + 1],
+                                                          chunk))[0])
+                w, e = ingest_compare(o5, i, r5, 0, f"5-channel file {i} alone")
+                w5, e5 = max(w5, w), e5 + e
+            if e5:
+                fail("ingest: " + " | ".join(e5[:10]))
+
+            # the display meters on the trailing window, as the CLI runs them
+            reset_counts()
+            disp = _run_display_meters(["phasewheel", "stereoscope"], x, lengths, FS, dev)
+            torch.cuda.synchronize()
+            n_stft = launch_counts()["stft_fused"]
+            if n_stft != 2:
+                fail(f"ingest: _run_display_meters launched stft_fused {n_stft} times, not 2")
+            if disp["phasewheel"]["phase"].shape[0] != B:
+                fail("ingest: display readouts not of the batch")
+
+            # the CPU runs and the CLI
+            t_card = time.perf_counter() - t_checks
+            worst_cpu, errs = 0.0, []
+            for n, job in jobs.items():
+                cpu_out, cpu_hist = job.get(timeout=600)
+                if cpu_hist is not None and not np.array_equal(
+                        st["r128"].hist_m[check].cpu().numpy(), cpu_hist):
+                    errs.append("R128 hist_m differs from the CPU run")
+                for j, i in enumerate(check):
+                    w, e = ingest_compare({n: out[n]}, i, cpu_out, j, f"file {i} vs CPU")
+                    worst_cpu, errs = max(worst_cpu, w), errs + e
+            if errs:
+                fail("ingest: card against CPU runs: " + " | ".join(errs[:10]))
+            t_cpu = time.perf_counter() - t_checks
+            res = []
+            for pr in procs:
+                so, se = pr.communicate(timeout=600)
+                if pr.returncode != 0:
+                    fail(f"ingest: CLI {' '.join(pr.args[3:])} exited {pr.returncode}: {se[-2000:]}")
+                res.append(json.loads(so))
+            errs = []
+            json_compare(res[0], res[1], "rows", errs)
+            if errs:
+                fail("ingest: the CLI on the card against --cpu: " + " | ".join(errs[:10]))
+            print(f"phase ingest: ok: files {check} in the batch against each alone on the card "
+                  f"(the worst float difference at {worst_pf:.3g} of its bar) and against CPU "
+                  f"runs ({worst_cpu:.3g} of its bar), hist_m exact; 5-channel: r128 and surround "
+                  f"over {INGEST_N5} files, launches {c5} as predicted from the lengths, 3 files "
+                  f"alone at {w5:.3g} of the bar; "
+                  f"the checks took {time.perf_counter() - t_checks:.1f} s (the card's "
+                  f"{t_card:.1f} s of it, CPU runs collected at {t_cpu:.1f} s); "
+                  f"stream_pipelined equals stream bit for bit "
+                  f"over {n64} files x {len(blocks)} blocks ({tb:.3f} s against {ta:.3f} s); "
+                  f"_run_display_meters: stft_fused {n_stft} launches; python -m meters_lv2_torch "
+                  f"--meters all --json on 8 files equals --cpu at the bars [{gpu}]")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+    return {k: counts[k] + c5[k] + (n_stft if k == "stft_fused" else 0) for k in counts}
+
+
 def stop_workers():
     global POOL
     if POOL is not None:
@@ -2644,7 +3217,22 @@ def main():
     variants_golden(dev)
     marks.append(("golden variants", time.perf_counter()))
 
-    # -- 6. times -----------------------------------------------------------
+    # -- 6. ingest ----------------------------------------------------------
+    def launch_counts():
+        return {"r128_fused": r128_fused.launch_count, "ballistics": ballistics_core.launch_count,
+                "truepeak_fused": truepeak_fused.launch_count,
+                "bitmeter_stats": bitmeter_stats.launch_count,
+                "spectrum_fused": spectrum_fused.launch_count,
+                "surround_fused": surround_fused.launch_count,
+                "stft_fused": stft_fused.launch_count,
+                "ballistics_envelope": ballistics_core.envelope_launch_count,
+                "r128_fused_seg": r128_fused.seg_launch_count,
+                "surround_fused_wide": surround_fused.wide_launch_count}
+
+    ingest_launches = ingest_phase(dev, gpu, reset_counts, launch_counts)
+    marks.append(("ingest", time.perf_counter()))
+
+    # -- 7. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
     xd, zd, hd = on_card(x, z0, h0)
     xf = xd.reshape(B_MAIN, -1)
@@ -2840,6 +3428,7 @@ def main():
         "source": "meters_lv2_torch/csrc/r128_fused.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_r128.py:287",
         "launches": launches,
+        "ingest_launches": ingest_launches["r128_fused"],  # phase ingest's pipeline runs
         "max_abs_err": main_err,  # p at the main-path shape, vs plain version
         "ms": ms_kernel,
         "plain_ms": ms_plain,
@@ -2852,6 +3441,7 @@ def main():
         "source": "meters_lv2_torch/csrc/ballistics.cu",  # the serial body
         "replaces": "meters_lv2_tpu/ops/pallas_ballistics.py:133",
         "launches": ball_launches,  # dBTP's tails
+        "ingest_launches": ingest_launches["ballistics"],  # phase ingest's pipeline runs
         "max_abs_err": ball_err,  # all outputs at the main-path shape
         "ms": times["ballistics"][0],  # alternated with the envelope body
         "plain_ms": times["ballistics"][1],
@@ -2864,6 +3454,7 @@ def main():
         "source": "meters_lv2_torch/csrc/truepeak_fused.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_truepeak.py:161",
         "launches": tp_launches,
+        "ingest_launches": ingest_launches["truepeak_fused"],  # phase ingest's pipeline runs
         "max_abs_err": tp_err,  # z1, z2, m, p at the main-path shape
         "ms": times["truepeak_fused"][0],  # the default (envelope) body
         "plain_ms": times["truepeak_fused"][1],  # its plain version, one call
@@ -2879,6 +3470,7 @@ def main():
         "source": "meters_lv2_torch/csrc/bitmeter_stats.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_bitmeter.py:179",
         "launches": bit_launches,
+        "ingest_launches": ingest_launches["bitmeter_stats"],  # phase ingest's pipeline runs
         "max_abs_err": bit_err,  # every field at the main-path shape
         "ms": times["bitmeter_stats"][0],
         "plain_ms": times["bitmeter_stats"][1],
@@ -2893,6 +3485,7 @@ def main():
         "source": "meters_lv2_torch/csrc/spectrum_fused.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_spectrum.py:357",
         "launches": spec_main + spec_tail,
+        "ingest_launches": ingest_launches["spectrum_fused"],  # phase ingest's pipeline runs
         "max_abs_err": spec_err,  # val, peak and zf at the main-path shape
         "ms": times["spectrum_fused"][0],
         "plain_ms": times["spectrum_fused"][1],
@@ -2905,6 +3498,7 @@ def main():
         "source": "meters_lv2_torch/csrc/surround_fused.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_surround.py:371",
         "launches": sur_launches,
+        "ingest_launches": ingest_launches["surround_fused"],  # phase ingest's pipeline runs
         "max_abs_err": sur_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000
         "ms": times["surround_fused"][0],  # C=8; C=5 is printed in phase times
         "plain_ms": times["surround_fused"][1],
@@ -2917,6 +3511,7 @@ def main():
         "source": "meters_lv2_torch/csrc/stft_fused.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_stft.py:216",
         "launches": stft_launches,
+        "ingest_launches": ingest_launches["stft_fused"],  # phase ingest's pipeline runs
         "max_abs_err": stft_err,  # raw re/im at the main-path shape, vs plain version
         "ms": times["stft_fused"][0],  # phasewheel mode, the main path's
         "plain_ms": times["stft_fused"][1],
@@ -2931,6 +3526,7 @@ def main():
         "source": "meters_lv2_torch/csrc/ballistics.cu",  # the envelope body, the PPM default
         "replaces": "meters_lv2_tpu/ops/pallas_ballistics.py:61",
         "launches": env_launches,  # BBCstereo, DINstereo and BBCM6 on the default path
+        "ingest_launches": ingest_launches["ballistics_envelope"],  # phase ingest's pipeline runs
         "max_abs_err": env_err,  # at N=512 vs plain version (bit-exact); vs serial in phase kernels
         "ms": times["ballistics_envelope"][0],  # alternated with the serial body
         "plain_ms": times["ballistics_envelope"][1],
@@ -2945,6 +3541,7 @@ def main():
         "source": "meters_lv2_torch/csrc/r128_fused.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_r128.py:298",
         "launches": seg_launches,  # the 12 main-path blocks through fused_core(off=...)
+        "ingest_launches": ingest_launches["r128_fused_seg"],  # phase ingest's pipeline runs
         "max_abs_err": seg_err,  # seg at the main-path shape, vs plain version
         "ms": var_times["seg"][0],
         "plain_ms": var_times["seg"][1],
@@ -2957,6 +3554,7 @@ def main():
         "source": "meters_lv2_torch/csrc/surround_wide.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_surround.py:252",
         "launches": wide_launches,  # surround5 and surround8 with METERS_TORCH_SURROUND_WIDE=1
+        "ingest_launches": ingest_launches["surround_fused_wide"],  # phase ingest's pipeline runs
         "max_abs_err": wide_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000, vs plain
         "ms": var_times["wide C=8"][0],  # C=5 is printed in phase times
         "plain_ms": var_times["wide C=8"][1],

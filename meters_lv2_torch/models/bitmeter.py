@@ -72,7 +72,7 @@ class BitMeter:
         # stop at INT_MAX)
         run = state.integrating & (state.time < _CAP - T)
         d = bitmeter_stats(x.to(torch.float32).reshape(-1, T))
-        d = {k: v.reshape(*batch, *v.shape[1:]) for k, v in d.items()}
+        d = {k: v.reshape((*batch, *v.shape[1:])) for k, v in d.items()}
         gate = run.to(torch.int32)
 
         def gated(old, delta):  # old + delta * gate, one launch

@@ -1,7 +1,7 @@
 """Polyphase oversampling as batched block matmuls: 4x for true-peak
-detection and 1/2/4/8x for the goniometer's trace.  Counterpart of the
-``upsample4`` / ``upsample4_absmax`` / ``upsample`` / ``composed_smooth_taps``
-part of ``meters_lv2_tpu/ops/resample.py``.
+detection, 1/2/4/8x for the goniometer's trace, and the arbitrary-ratio
+resampler of mixed-rate ingest.  Counterpart of
+``meters_lv2_tpu/ops/resample.py``.
 
 The oversampled stream is
 
@@ -23,11 +23,12 @@ kernel (csrc/r128_fused.cu) reproduces that rule.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from .design import upsample4_kernel, upsample_poly_kernel
+from .design import rational_resample_kernel, upsample4_kernel, upsample_poly_kernel
 from .lti import canonical_device, matmul
 
 _HL = 24  # zita half-length: 48 taps, 47 samples of history
@@ -242,3 +243,91 @@ def composed_smooth_taps(
         C.astype(np.float32),
         powv.astype(np.float32),
     )
+
+
+class RationalResampler:
+    """Arbitrary-ratio polyphase resampler, zita-equivalent, as cycle GEMMs.
+
+    The reference's generic Resampler (resampler.cc:67-120,171-262) handles
+    any fs_in -> fs_out.  With n = fs_out/gcd phases and s = fs_in/gcd
+    inputs a cycle, every cycle of n outputs is one product of an
+    overlapping input frame [s + 2h - 1] with a dense [F, n] matrix: all
+    cycles batch into one matrix product (``lti.matmul``, IEEE fp32).
+
+    Streaming: apply() carries a 2h-1 sample history; a fresh (zeros)
+    history reproduces the reference primed with 2h-1 zero samples.
+    """
+
+    def __init__(self, fs_in: int, fs_out: int, hl: int = 32, frel: float | None = None):
+        W, n, s, h = rational_resample_kernel(fs_in, fs_out, hl, frel)
+        self.fs_in, self.fs_out = int(fs_in), int(fs_out)
+        self.n, self.s, self.h = n, s, h
+        self.nh = 2 * h - 1
+        self.F = s + self.nh  # frame length a cycle
+        Wc = np.zeros((self.F, n), np.float32)
+        for p in range(n):
+            b = (p * s) // n
+            Wc[b : b + 2 * h, p] = W[p]
+        self._Wc = Wc
+        self._Wc_on: dict[torch.device, torch.Tensor] = {}
+
+    def init(self, batch_shape=(), device="cuda") -> torch.Tensor:
+        return torch.zeros((*tuple(batch_shape), self.nh), dtype=torch.float32, device=device)
+
+    def _matrix(self, device) -> torch.Tensor:
+        device = canonical_device(device)
+        if device not in self._Wc_on:
+            self._Wc_on[device] = torch.as_tensor(self._Wc, device=device)
+        return self._Wc_on[device]
+
+    def apply(self, x: torch.Tensor, hist: torch.Tensor):
+        """x [..., T] (T % s == 0), hist [..., 2h-1] ->
+        (y [..., T*n/s], new_hist)."""
+        *batch, T = x.shape
+        s, nh = self.s, self.nh
+        if T % s:
+            raise ValueError(f"block length {T} is not a multiple of {s} inputs a cycle")
+        ncyc = T // s
+        z = torch.cat([hist, x.to(torch.float32)], dim=-1)  # [..., nh + T]
+        if ncyc == 0:
+            return z.new_zeros((*batch, 0)), z[..., -nh:]
+        blocks = z[..., nh:].reshape(*batch, ncyc, s)
+        if s >= nh:
+            # the head of cycle c (z[c*s : c*s+nh]) is the tail of block
+            # c-1; cycle 0's head is the carried history
+            heads = torch.cat([z[..., None, :nh], blocks[..., :-1, s - nh:]], dim=-2)
+        else:
+            # nh spans several blocks: ceil(nh/s) shifted reshapes of z
+            cols = []
+            done = 0
+            while done < nh:
+                w = min(s, nh - done)
+                seg = z[..., done : done + ncyc * s].reshape(*batch, ncyc, s)
+                cols.append(seg[..., :w])
+                done += w
+            heads = torch.cat(cols, dim=-1)
+        frames = torch.cat([heads, blocks], dim=-1)  # [..., ncyc, F] = z[c*s : c*s + F]
+        y = matmul(frames, self._matrix(x.device))
+        return y.reshape(*batch, ncyc * self.n), z[..., -nh:]
+
+
+@functools.lru_cache(maxsize=32)
+def _resampler(fs_in: int, fs_out: int, hl: int) -> RationalResampler:
+    return RationalResampler(fs_in, fs_out, hl)
+
+
+def resample_signal(x: torch.Tensor, fs_in: int, fs_out: int, hl: int = 32) -> torch.Tensor:
+    """Resample [..., T] from fs_in to fs_out on x's device.
+
+    Pads the tail with zeros to a whole number of polyphase cycles; returns
+    [..., ceil(T/s)*n] samples (the first T*fs_out/fs_in are the signal,
+    offset by the resampler's h-sample group delay).  The resampler of a
+    rate pair is designed once (a few ms on the host) and kept."""
+    if fs_in == fs_out:
+        return x
+    rs = _resampler(int(fs_in), int(fs_out), int(hl))
+    pad = (-x.shape[-1]) % rs.s
+    if pad:
+        x = torch.nn.functional.pad(x.to(torch.float32), (0, pad))
+    y, _ = rs.apply(x, rs.init(x.shape[:-1], device=x.device))
+    return y

@@ -6,9 +6,12 @@ shared library with a plain C interface,
 ``build/meters_lv2_torch/libmeters_torch_kernels.so`` in the checkout, which
 ``ctypes`` loads.  A sidecar file holds the sha256 of the sources (the
 ``*.cuh`` headers included) and flags, so the library is rebuilt only when
-they change; an ``fcntl.flock`` serialises concurrent builds.  Nothing here
-runs at import time: a machine without ``nvcc`` can import the package and
-use the plain CPU versions.
+they change.  ``locked_build``, shared with the WAV codec's build
+(``runtime/native.py``), serialises concurrent builds with an
+``fcntl.flock``, checks the sidecar again under the lock, and moves the
+library and then its sidecar into place with ``os.replace``, so no process
+loads a half-written library.  Nothing here runs at import time: a machine
+without ``nvcc`` can import the package and use the plain CPU versions.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -52,12 +56,43 @@ def _nvcc() -> str:
     )
 
 
-def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def digest(sources: list[Path], flags) -> str:
+    """sha256 of the flags and of each source's name and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in sources:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()
+
+
+def locked_build(build_dir: Path, lib_name: str, want: str,
+                 link: Callable[[Path], bool]) -> Path | None:
+    """``build_dir/lib_name``, rebuilt unless its ``.srchash`` sidecar holds
+    ``want``.  Under an flock on ``build_dir/.lock``, ``link(tmp)`` writes
+    the library to a per-process temporary path and returns whether it
+    succeeded (or raises); the library and then the sidecar are moved into
+    place with ``os.replace``.  None if ``link`` failed."""
+    build_dir = Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib = build_dir / lib_name
+    sidecar = build_dir / (lib_name + ".srchash")
+    with open(build_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists() and sidecar.exists() and sidecar.read_text() == want:
+            return lib
+        pid = os.getpid()
+        tmp = build_dir / f".{lib_name}.{pid}.tmp"
+        tmp_sidecar = build_dir / f".{lib_name}.srchash.{pid}.tmp"
+        try:
+            if not link(tmp):
+                return None
+            os.replace(tmp, lib)
+            tmp_sidecar.write_text(want)
+            os.replace(tmp_sidecar, sidecar)
+        finally:
+            tmp.unlink(missing_ok=True)
+            tmp_sidecar.unlink(missing_ok=True)
+    return lib
 
 
 def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
@@ -74,19 +109,10 @@ def build() -> Path:
     """Compile csrc/*.cu into the shared library unless an up-to-date one
     exists; return its path.  Raises RuntimeError if nvcc fails."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = _digest(sorted(CSRC_DIR.glob("*.cu*")))  # *.cu and *.cuh
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / LIB_NAME
-    sidecar = BUILD_DIR / (LIB_NAME + ".srchash")
-    with open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if (lib.exists() and sidecar.exists()
-                and sidecar.read_text() == digest):
-            return lib
+
+    def link(tmp: Path) -> bool:
         nvcc = _nvcc()
-        pid = os.getpid()
-        objs = [BUILD_DIR / f".{src.stem}.{pid}.o" for src in sources]
-        tmp = BUILD_DIR / f".{LIB_NAME}.{pid}.tmp"
+        objs = [BUILD_DIR / f".{src.stem}.{os.getpid()}.o" for src in sources]
         try:
             runs = _run_all([
                 [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
@@ -99,16 +125,17 @@ def build() -> Path:
             )
             for _, rc, out in runs:
                 if rc != 0:
-                    tmp.unlink(missing_ok=True)
                     raise RuntimeError(
                         f"nvcc failed with exit code {rc}:\n{out[-6000:]}"
                     )
         finally:
             for o in objs:
                 o.unlink(missing_ok=True)
-        os.replace(tmp, lib)
-        sidecar.write_text(digest)
-    return lib
+        return True
+
+    # *.cu and *.cuh
+    return locked_build(BUILD_DIR, LIB_NAME,
+                        digest(sorted(CSRC_DIR.glob("*.cu*")), NVCC_FLAGS), link)
 
 
 def kernels() -> ctypes.CDLL:

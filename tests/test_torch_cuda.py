@@ -1057,3 +1057,83 @@ def test_variant_switches_reach_the_meters_on_card(cuda, monkeypatch):
                 assert (a - b).abs().max().item() < 1e-5, (name, k)
             else:
                 assert bool(((a - b).abs() <= 2e-6 * b.abs() + 1e-7).all()), (name, k)
+
+def test_stream_pipelined_matches_stream_on_card(cuda):
+    """Pinned blocks copied on a side stream, the compute stream waiting on
+    each copy's event: the same updates in the same order as stream(), so
+    the states are bit-identical."""
+    from meters_lv2_torch.io.stream import chunk_array, stream, stream_pipelined
+
+    x = (0.2 * np.random.default_rng(7).standard_normal((4, 2, 5 * 9600))).astype(np.float32)
+    for name, batch in (("EBUr128", (4,)), ("DINstereo", (4, 2)), ("spectr30stereo", (4,))):
+        m = meters_lv2_torch.create(name, 48000)
+
+        def run(go, **kw):
+            st = m.init(batch, device=cuda)
+            if name == "spectr30stereo":
+                class Stereo:
+                    def update(self, s, b):
+                        return m.update(s, b, stereo=True)
+                return go(Stereo(), st, chunk_array(x, 9600), **kw)
+            return go(m, st, chunk_array(x, 9600), **kw)
+
+        a = run(stream)
+        for depth in (1, 3):
+            b = run(stream_pipelined, depth=depth)
+            torch.cuda.synchronize()
+            for f in ("z1", "z2", "m") if name == "DINstereo" else ():
+                assert torch.equal(getattr(a, f), getattr(b, f)), (name, f)
+            if name == "EBUr128":
+                assert torch.equal(a.hist_m, b.hist_m) and torch.equal(a.z, b.z)
+            if name == "spectr30stereo":
+                assert torch.equal(a.zf, b.zf) and torch.equal(a.val, b.val)
+
+
+def test_ragged_pipeline_on_card_matches_cpu(cuda):
+    """run_stream_ragged on the card against the same run on CPU tensors:
+    R128's histograms exact, its readouts within 1e-4 dB; K20 within 1e-5
+    relative; the bit meter exact."""
+    from meters_lv2_torch.models.bitmeter import BitMeter
+    from meters_lv2_torch.models.ebur128 import EbuR128Meter
+    from meters_lv2_torch.models.kmeter import K20Meter
+    from meters_lv2_torch.parallel.pipeline import MeterPipeline
+
+    lens = np.array([36000 + 2404, 24012, 3 * 12000])
+    x = (0.2 * np.random.default_rng(8).standard_normal((3, 2, 4 * 12000))).astype(np.float32)
+    outs, states = [], []
+    for dev in (cuda, torch.device("cpu")):
+        pipe = MeterPipeline({"r128": EbuR128Meter(48000), "k20": K20Meter(48000),
+                              "bit": BitMeter(48000)})
+        st = pipe.run_stream_ragged(pipe.init((3,), device=dev), torch.as_tensor(x, device=dev),
+                                    lens, 12000)
+        o, _ = pipe.read(st)
+        outs.append(o)
+        states.append(st)
+    g, c = outs
+    assert torch.equal(states[0]["r128"].hist_m.cpu(), states[1]["r128"].hist_m)
+    for k in ("loudness_M", "loudness_S", "integrated", "max_M"):
+        assert float((g["r128"][k].cpu() - c["r128"][k]).abs().max()) < 1e-4, k
+    torch.testing.assert_close(g["k20"]["rms"].cpu(), c["k20"]["rms"], rtol=1e-5, atol=0)
+    for k in ("hit", "one", "dset"):
+        assert torch.equal(g["bit"][k].cpu(), c["bit"][k]), k
+
+
+def test_load_files_resamples_on_card(cuda, tmp_path):
+    """load_files' resampling product on the card against the same on CPU
+    tensors, within the resampler's 1e-6 bar; files at the target rate pass
+    through untouched."""
+    from meters_lv2_torch.io import batch
+    from meters_lv2_torch.io.wav import write_wav
+
+    rng = np.random.default_rng(9)
+    paths = []
+    for i, fs in enumerate((44100, 48000, 32000)):
+        p = str(tmp_path / f"f{i}.wav")
+        write_wav(p, (0.3 * rng.standard_normal((2, fs + 37 * i))).astype(np.float32), fs)
+        paths.append(p)
+    g = batch.load_files(paths, target_rate=48000, device=cuda)
+    c = batch.load_files(paths, target_rate=48000, device="cpu")
+    assert g.rate == c.rate == 48000 and g.data.shape == c.data.shape
+    np.testing.assert_array_equal(g.lengths, c.lengths)
+    np.testing.assert_allclose(g.data, c.data, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(g.data[1], c.data[1])

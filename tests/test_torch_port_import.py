@@ -59,6 +59,34 @@ def test_import_pulls_in_no_jax():
     assert r.stdout.strip() == "ok"
 
 
+
+def test_ingest_pipeline_and_cli_import_no_jax():
+    """The slice above the meters (WAV ingest, the native loader, resampling,
+    streaming, the pipeline, the vendored schema and render modules and the
+    CLI) imports neither jax nor meters_lv2_tpu."""
+    code = (
+        "import sys\n"
+        "import meters_lv2_torch.io.wav, meters_lv2_torch.io.batch, meters_lv2_torch.io.stream\n"
+        "import meters_lv2_torch.runtime.native, meters_lv2_torch.parallel.pipeline\n"
+        "import meters_lv2_torch.models.schema, meters_lv2_torch.utils.db\n"
+        "import meters_lv2_torch.utils.png, meters_lv2_torch.utils.render\n"
+        "import meters_lv2_torch.__main__ as cli\n"
+        "from meters_lv2_torch.ops.resample import RationalResampler, resample_signal\n"
+        "from meters_lv2_torch.parallel import MeterPipeline\n"
+        "from meters_lv2_torch.io import read_wav, write_wav\n"
+        "assert cli.main(['--list']) == 0\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_registry_names_every_jax_meter():
     """Every meter of the JAX package is available in the port: none is
     left in NOT_YET_PORTED."""
