@@ -108,7 +108,27 @@ Phases, each printed on its own line; any failure exits non-zero:
               phase wheel and once for the stereoscope; and
               python -m meters_lv2_torch --meters all --json on 8 files
               against the same with --cpu;
-  7. times    each kernel vs its plain version, truepeak_fused's envelope
+  7. live     the live shell (meters_lv2_torch.live) at B=1: a card
+              LiveEngine at stereo --meters all (20 meters) over 8 s of
+              seeded tones and noise by feed_file(speed=0) at the shell's
+              0.5 s chunk (24,000 samples, not a multiple of 128), with a
+              readout and the 20 PNG frames after every feed, timed (per
+              feed, per readout generation, the frames, the unpaced
+              x-realtime and the realtime headroom at --fps 10 --speed 1);
+              a second stereo engine (a meter or more of every kernel)
+              fed from an os.pipe with ragged writes through feed_stream;
+              --stdin at stereo --meters all: a third engine fed through
+              feed_stream by a producer in real time, timed as the first
+              (its realtime headroom); --meters all on 5 channels over
+              4 s; every kernel's launches equal to the counts predicted
+              from the feeds; each engine against the same engine on CPU
+              tensors (worker processes replaying its feeds and readouts)
+              at the ingest bars; then the dashboard server on the card
+              engine: every endpoint, the transport controls, three port
+              writes, a NaN write refused with 500, /save then /load then
+              1 s more against the run that never loaded, every state
+              tensor still on the card after each control and load;
+  8. times    each kernel vs its plain version, truepeak_fused's envelope
               and serial bodies alternated at N=512 and N=8,192, the
               ballistics kernel's envelope and serial bodies alternated at
               N=512 and at 4,224 to 33,792 rows, and main-path x-realtime
@@ -130,7 +150,10 @@ Phases, each printed on its own line; any failure exits non-zero:
 The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
 sample on the CPU) go to worker processes at the start and are collected in
 phase 4, so they overlap the card's work; phase ingest's CPU runs and CLI
-runs overlap its checks on the card the same way, after its timed runs.  The last lines are a JSON
+runs overlap its checks on the card the same way, after its timed runs.
+Phase live's CPU engines of its stereo and 5-channel runs, whose feeds are
+known in advance, start with phase main and run through phases main and
+golden, which time nothing; those of its pipe-fed run, after its timed run.  The last lines are a JSON
 summary of the kernels, the nvidia-smi name and power limit, and
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.  It imports no JAX.
@@ -249,6 +272,7 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     stop_workers()
+    stop_live_workers()
     sys.exit(1)
 
 
@@ -2708,6 +2732,531 @@ def ingest_phase(dev, gpu, reset_counts, launch_counts):
     return {k: counts[k] + c5[k] + (n_stft if k == "stft_fused" else 0) for k in counts}
 
 
+# -- phase live: the live shell (meters_lv2_torch.live) at B=1 -----------------
+# Three card engines against the same engines on CPU tensors (in worker
+# processes), each replaying the card engine's feeds and readouts: stereo
+# --meters all (20 meters) over LIVE_SECONDS of seeded tones and noise by
+# feed_file(speed=0) at the shell's 0.5 s chunk with a dashboard readout and
+# the 20 PNG frames after every feed; a second stereo engine (one or more
+# meters of every kernel) fed from an os.pipe with ragged writes through
+# feed_stream; --stdin at --meters all, fed through feed_stream by a writer
+# in real time and timed as the first (not replayed on the CPU: its kernels
+# run at the same shapes in the other engines); and --meters all on 5
+# channels over LIVE_SECONDS5.  Readouts at ingest_compare's bars (the
+# display meters at analyzer_diff's), R128's hist_m exact.
+LIVE_SECONDS, LIVE_SECONDS5, LIVE_PIPE_SECONDS = 8.0, 4.0, 2.0
+LIVE_CHUNK = FS // 2  # the shell's default --chunk-seconds 0.5: 187 x 128 + 64
+LIVE_WRITES = (997 * 8, 1531 * 8 + 4, 61, 4099 * 8 + 12)  # the pipe writer's pieces, bytes
+LIVE_WORKERS = 8  # the CPU engines' worker processes
+LIVE_POOL = None  # their pool, from phase main to the end of phase live
+LIVE_SIG2, LIVE_SIG5, LIVE_SIGP = (2, LIVE_SECONDS, 31), (5, LIVE_SECONDS5, 33), (2, LIVE_PIPE_SECONDS, 32)
+LIVE_SIGS = (2, 4.0, 35)  # the --stdin run's signal, written in real time
+LIVE_PIPE_PACE = 2.0  # the writer's pace in x realtime: slower than the reader, so reads are ragged
+# the pipe-fed engine's meters: one or more of every kernel's meters (DR-14
+# and TP+RMS add only truepeak_fused launches, and their CPU runs are long)
+LIVE_PIPE_METERS = ("r128", "truepeak", "vu", "din", "bbcms", "k20", "cor", "spectrum",
+                    "sigdist", "bitmeter", "goniometer", "phasewheel", "stereoscope")
+
+
+def live_signal(C, seconds, seed):
+    """[C, T] float32: a tone per channel at a level and frequency drawn from
+    the seed, over 0.05 N(0, 1), the first eighth 20 dB down."""
+    rng = np.random.default_rng(seed)
+    T = int(seconds * FS)
+    t = np.arange(T, dtype=np.float32) / np.float32(FS)
+    amp = rng.uniform(0.05, 0.5, (C, 1)).astype(np.float32)
+    f0 = rng.uniform(60.0, 5000.0, (C, 1)).astype(np.float32)
+    x = amp * np.sin(np.float32(2 * np.pi) * f0 * t) + np.float32(0.05) * rng.standard_normal(
+        (C, T), dtype=np.float32)
+    x[:, : T // 8] *= np.float32(0.1)
+    return x
+
+
+def live_groups(names):
+    """The meters split for the CPU workers, the longest runs first: the
+    true-peak meters alone (their plain version is a Python loop), the PPM
+    needles in pairs, the rest together."""
+    heavy = [n for n in names if n in ("truepeak", "dr14", "tpnrms")]
+    ppm = [n for n in names if n in ("din", "nor", "bbc", "ebu", "bbcms")]
+    rest = [n for n in names if n not in heavy and n not in ppm]
+    return [[n] for n in heavy] + [ppm[i:i + 2] for i in range(0, len(ppm), 2)] + [rest]
+
+
+def live_worker_init():
+    """A phase live worker: torch and the live shell imported once, one
+    intra-op thread (the cores are shared)."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    import meters_lv2_torch.live  # noqa: F401
+
+
+def live_script(seconds, reads):
+    """feed_file's blocks of `seconds` at LIVE_CHUNK, each followed by a
+    readout when `reads`: a card engine's script, known before it runs."""
+    T = int(seconds * FS)
+    script = []
+    for i in range(0, T, LIVE_CHUNK):
+        script += [min(LIVE_CHUNK, T - i)] + (["read"] if reads else [])
+    return script
+
+
+def live_cpu_start():
+    """Start the CPU engines of phase live's stereo and 5-channel runs,
+    whose feeds and readouts are known in advance, in LIVE_WORKERS worker
+    processes; phase main starts them, and they run through phases main
+    and golden, which time nothing.  Returns {(run, group): result}."""
+    global LIVE_POOL
+    from meters_lv2_torch.__main__ import applicable_meters
+
+    LIVE_POOL = multiprocessing.get_context("spawn").Pool(LIVE_WORKERS, initializer=live_worker_init)
+    jobs = {}
+    for run, names, C, sig, script in (
+            ("stereo", applicable_meters(2), 2, LIVE_SIG2, live_script(LIVE_SECONDS, True)),
+            ("5ch", applicable_meters(5), 5, LIVE_SIG5, live_script(LIVE_SECONDS5, False))):
+        for g in live_groups(names):
+            jobs[run, tuple(g)] = LIVE_POOL.apply_async(live_cpu_run, (g, C, sig, script))
+    return jobs
+
+
+def stop_live_workers():
+    global LIVE_POOL
+    if LIVE_POOL is not None:
+        LIVE_POOL.terminate()
+        LIVE_POOL.join()
+        LIVE_POOL = None
+
+
+def live_cpu_run(names, C, sig, script):
+    """A LiveEngine of `names` on CPU tensors replaying `script` (a feed's
+    length, or "read" for a readout) over live_signal(*sig); (the final
+    snapshot, R128's hist_m or None, the ring).  Runs in a worker process
+    started by live_worker_init."""
+    from meters_lv2_torch.live import LiveEngine
+
+    x = live_signal(*sig)
+    eng = LiveEngine(names, FS, C, device="cpu")
+    off = 0
+    for act in script:
+        if act == "read":
+            eng.snapshot()
+        else:
+            eng.feed(x[:, off: off + act])
+            off += act
+    snap = eng.snapshot()
+    hist = eng._state["r128"].hist_m.numpy() if "r128" in names else None
+    return snap, hist, eng._ring
+
+
+def live_update(names):
+    """The kernels' launches in one pipeline update of s samples through
+    `names`: the 128-aligned bulk runs r128_fused, truepeak_fused (dBTP,
+    DR-14, TP+RMS), spectrum_fused and surround_fused; a tail of s % 128
+    samples the plain ops, where dBTP, DR-14 and TP+RMS run the serial
+    ballistics body; the PPM needles and BBC M-6 run the envelope body and
+    the bit meter its kernel at every length."""
+    n_tp = sum(n in names for n in ("truepeak", "dr14", "tpnrms"))
+    n_env = sum(n in names for n in ("din", "nor", "bbc", "ebu", "bbcms"))
+
+    def per(s):
+        big, tail = s >= 128, s % 128 != 0
+        return {"r128_fused": big * ("r128" in names), "truepeak_fused": n_tp * big,
+                "spectrum_fused": big * ("spectrum" in names),
+                "surround_fused": big * ("surround" in names), "ballistics": n_tp * tail,
+                "ballistics_envelope": n_env, "bitmeter_stats": int("bitmeter" in names)}
+    return per
+
+
+def live_predict(script, per_update, n_display):
+    """Launches predicted for a script: each feed's 4-aligned prefix through
+    per_update, and stft_fused once per display analyzer at each readout
+    (and the final one when the script does not end with a readout)."""
+    want = {}
+    for act in script:
+        if act == "read":
+            want["stft_fused"] = want.get("stft_fused", 0) + n_display
+        elif act // 4:
+            for k, c in per_update(act // 4 * 4).items():
+                want[k] = want.get(k, 0) + int(c)
+    if script and script[-1] != "read":
+        want["stft_fused"] = want.get("stft_fused", 0) + n_display
+    return want
+
+
+def live_phase(dev, gpu, reset_counts, launch_counts, jobs):
+    """The phase live (see the module docstring), with `jobs` from
+    live_cpu_start; returns each kernel's launches in its four engine
+    runs, by kernels-line name."""
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from meters_lv2_torch.__main__ import DISPLAY_METERS, applicable_meters
+    from meters_lv2_torch.live import LiveEngine, feed_file, feed_stream, make_server
+    from meters_lv2_torch.ops import stft_fused
+    from meters_lv2_torch.utils.interop import tree_flatten
+
+    t_phase = time.perf_counter()
+    names = applicable_meters(2)
+    names5 = applicable_meters(5)
+    pipe_names = [n for n in names if n not in DISPLAY_METERS]
+
+    def on_card(eng, what):
+        leaves = [t for t in tree_flatten(eng._state)[0] if isinstance(t, torch.Tensor)]
+        if not leaves or not all(t.is_cuda for t in leaves):
+            fail(f"live: a state tensor left the card after {what}")
+
+    def check_counts(counts, want, what):
+        want = {k: want.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"live: {what}: launches {counts} are not the {want} predicted from the feeds")
+
+    def dashboard(e):
+        """Wrap e.feed with a readout and the 20 PNG frames after each feed,
+        as a browser at any --fps sees each generation; returns the lists
+        the wrapper fills: each feed's ms with and without its card work
+        (enqueue), the generation's and the frames' ms, and the script of
+        feeds and readouts."""
+        t = {"feed": [], "enq": [], "gen": [], "png": [], "script": []}
+        feed = e.feed
+
+        def wrapped(block):
+            t0 = time.perf_counter()
+            feed(block)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            e.snapshot()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for n in e.names:
+                if e.frame(n)[:8] != b"\x89PNG\r\n\x1a\n":
+                    fail(f"live: frame({n}) is not a PNG")
+            t4 = time.perf_counter()
+            t["enq"].append((t1 - t0) * 1e3)
+            t["feed"].append((t2 - t0) * 1e3)
+            t["gen"].append((t3 - t2) * 1e3)
+            t["png"].append((t4 - t3) * 1e3)
+            t["script"].extend([block.shape[-1], "read"])
+
+        e.feed = wrapped
+        return t
+
+    def through_pipe(e, x, pace):
+        """x written down an os.pipe in LIVE_WRITES pieces at `pace` x
+        realtime by a thread, read by feed_stream at the shell's chunk;
+        (frames fed, seconds from the first write to the end of the
+        card's work)."""
+        payload = np.ascontiguousarray(x.T, "<f4").tobytes()
+        rfd, wfd = os.pipe()
+
+        def writer():
+            off = i = 0
+            t_w = time.perf_counter()
+            try:
+                while off < len(payload):
+                    n = LIVE_WRITES[i % len(LIVE_WRITES)]
+                    os.write(wfd, payload[off: off + n])
+                    off, i = off + n, i + 1
+                    lag = off / (8 * FS * pace) - (time.perf_counter() - t_w)
+                    if lag > 0:
+                        time.sleep(lag)
+            finally:
+                os.close(wfd)
+
+        wt = threading.Thread(target=writer)
+        t0 = time.perf_counter()
+        wt.start()
+        with os.fdopen(rfd, "rb") as fh:
+            fed = feed_stream(e, fh, 2, fmt="f32", chunk=LIVE_CHUNK)
+        wt.join()
+        torch.cuda.synchronize()
+        return fed, time.perf_counter() - t0
+
+    t_wait = time.perf_counter()
+    for job in jobs.values():  # the stereo and 5-channel CPU engines: nothing else loads the host
+        job.wait()
+    t_wait = time.perf_counter() - t_wait
+    try:
+        # -- the stereo engine, timed: a dashboard readout and the 20 frames
+        # after every feed, as a browser at any --fps sees each generation
+        x2 = live_signal(*LIVE_SIG2)
+        eng = LiveEngine(names, FS, 2, device=dev)
+        if eng.device.type != "cuda":
+            fail("live: LiveEngine did not take the card")
+        on_card(eng, "init")
+        td = dashboard(eng)
+        t_feed, script = td["feed"], td["script"]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feed_file(eng, x2, FS, LIVE_CHUNK, speed=0.0)
+        wall = time.perf_counter() - t0
+        del eng.feed
+        counts = launch_counts()
+        check_counts(counts, live_predict(script, live_update(names), 2), "stereo --meters all")
+        live_counts = dict(counts)
+        if eng.fed_samples != x2.shape[-1]:
+            fail(f"live: fed {eng.fed_samples} of {x2.shape[-1]} samples")
+        snap = eng.snapshot()
+        hist = eng._state["r128"].hist_m.cpu().numpy()
+        ring = eng._ring.copy()
+        med = {k: statistics.median(td[k]) for k in ("feed", "enq", "gen", "png")}
+        per_s = 2 * (med["feed"] + med["gen"] + med["png"])  # 2 feeds a second at 0.5 s
+        print(f"phase live: stereo --meters all ({len(names)} meters, {len(pipe_names)} in the "
+              f"pipeline) at B=1 over {LIVE_SECONDS:.0f} s by feed_file(speed=0) in "
+              f"{len(t_feed)} feeds of {LIVE_CHUNK} samples, a readout and the {len(names)} PNG "
+              f"frames after each: per feed {med['feed']:.2f} ms (median; enqueue "
+              f"{med['enq']:.2f} ms; min {min(t_feed):.2f}, max {max(t_feed):.2f}, the first "
+              f"{t_feed[0]:.2f}, the meters' first use); unpaced x-realtime feeding alone "
+              f"{LIVE_CHUNK / FS / (med['feed'] / 1e3):.2f} warm (the median feed), "
+              f"{LIVE_SECONDS / (sum(t_feed) / 1e3):.2f} over the run with the first use, "
+              f"{LIVE_SECONDS / wall:.2f} with the readouts and frames; per "
+              f"generation _outs (read + 3 display process) {med['gen']:.2f} ms, the {len(names)} "
+              f"frames {med['png']:.2f} ms; launches {counts}, as predicted [{gpu}]")
+        print(f"phase live: realtime headroom at --meters all --fps 10 --speed 1: per second of "
+              f"audio 2 feeds + 2 generations + 2 x {len(names)} PNG frames = {per_s:.1f} ms of "
+              f"1000 ({per_s / 10:.1f} % of realtime, headroom {1000 / per_s:.2f}x) [{gpu}]")
+
+        # -- the 5-channel engine: --meters all, r128 at C=5 and surround5
+        x5 = live_signal(*LIVE_SIG5)
+        e5 = LiveEngine(names5, FS, 5, device=dev)
+        reset_counts()
+        feed_file(e5, x5, FS, LIVE_CHUNK, speed=0.0)
+        snap5 = e5.snapshot()
+        torch.cuda.synchronize()
+        script5 = live_script(LIVE_SECONDS5, False)
+        c5 = launch_counts()
+        check_counts(c5, live_predict(script5, live_update(names5), 0), "5-channel --meters all")
+        if snap5["surround"]["level"].shape != (5,) or not np.isfinite(snap5["surround"]["level"]).all():
+            fail("live: surround5 levels not finite of shape (5,)")
+
+        # -- the pipe-fed engine: ragged writes, gathered into feeds of a chunk
+        xp = live_signal(*LIVE_SIGP)
+        ep = LiveEngine(list(LIVE_PIPE_METERS), FS, 2, device=dev)
+        sizes = []
+        pfeed = ep.feed
+
+        def rec(block):
+            sizes.append(block.shape[-1])
+            pfeed(block)
+
+        ep.feed = rec
+        reset_counts()
+        fed, t_pipe = through_pipe(ep, xp, LIVE_PIPE_PACE)
+        del ep.feed
+        snapp = ep.snapshot()
+        torch.cuda.synchronize()
+        cp = launch_counts()
+        check_counts(cp, live_predict(sizes, live_update(LIVE_PIPE_METERS), 2), "pipe-fed")
+        if fed != xp.shape[-1] or ep.fed_samples != fed or sum(sizes) != fed:
+            fail(f"live: feed_stream fed {fed} of {xp.shape[-1]} frames")
+        odd = sorted({s % 128 for s in sizes} - {0})
+
+        # -- --stdin at --meters all: a producer in real time, each feed with
+        # a readout and the 20 frames after it, as the stereo engine's
+        xs = live_signal(*LIVE_SIGS)
+        es = LiveEngine(names, FS, 2, device=dev)
+        ts = dashboard(es)
+        reset_counts()
+        fed_s, wall_s = through_pipe(es, xs, 1.0)
+        del es.feed
+        cs = launch_counts()
+        check_counts(cs, live_predict(ts["script"], live_update(names), 2), "--stdin")
+        if fed_s != xs.shape[-1] or es.fed_samples != fed_s:
+            fail(f"live: --stdin fed {fed_s} of {xs.shape[-1]} frames")
+        if not np.array_equal(es._ring, xs[:, -es._ring.shape[-1]:]):
+            fail("live: --stdin's ring is not the signal's last window")
+        on_card(es, "--stdin")
+        ssz = ts["script"][::2]
+        if len(ssz) < 3:
+            fail(f"live: --stdin fed {len(ssz)} blocks, too few to time")
+        ms = {k: statistics.median(ts[k]) for k in ("feed", "enq", "gen", "png")}
+        busy = [f + g + p for f, g, p in zip(ts["feed"], ts["gen"], ts["png"])]
+        busy_s = sum(busy)
+        per_s_first = busy_s / LIVE_SIGS[1]
+        # past the engine's first feed (its meters' first use), as the file
+        # path's headroom counts from the median feed
+        per_s_stdin = sum(busy[1:]) / (sum(ssz[1:]) / FS)
+        print(f"phase live: --stdin at stereo --meters all ({len(names)} meters): "
+              f"{LIVE_SIGS[1]:.0f} s written down an os.pipe in real time in pieces of "
+              f"{min(LIVE_WRITES) // 8}..{max(LIVE_WRITES) // 8} frames, read by feed_stream at "
+              f"chunk {LIVE_CHUNK}: {len(ssz)} feeds of {min(ssz)}..{max(ssz)} frames in "
+              f"{wall_s:.3f} s, a readout and the {len(names)} PNG frames after each: per feed "
+              f"{ms['feed']:.2f} ms (median; enqueue {ms['enq']:.2f}; the first {ts['feed'][0]:.2f}, "
+              f"the engine's first use), per generation {ms['gen']:.2f} ms, the frames "
+              f"{ms['png']:.2f} ms; busy past the first feed {per_s_stdin:.1f} ms a second of "
+              f"audio ({per_s_stdin / 10:.1f} % of realtime, headroom {1000 / per_s_stdin:.2f}x), "
+              f"with it {busy_s:.1f} ms in all, {per_s_first:.1f} ms a second (headroom "
+              f"{1000 / per_s_first:.2f}x); launches {cs}, as predicted [{gpu}]")
+
+        if script != live_script(LIVE_SECONDS, True):
+            fail("live: the stereo engine's feeds are not the script its CPU engines replayed")
+        for g in live_groups(list(LIVE_PIPE_METERS)):
+            jobs["pipe", tuple(g)] = LIVE_POOL.apply_async(live_cpu_run, (g, 2, LIVE_SIGP, sizes))
+        LIVE_POOL.close()
+        for k in live_counts:
+            live_counts[k] += c5[k] + cp[k] + cs[k]
+        print(f"phase live: 5 channels --meters all ({len(names5)} meters) over "
+              f"{LIVE_SECONDS5:.0f} s: launches {c5}; pipe-fed stereo ({len(LIVE_PIPE_METERS)} "
+              f"meters) over {LIVE_PIPE_SECONDS:.0f} s written at {LIVE_PIPE_PACE:.0f}x "
+              f"realtime: {len(sizes)} feeds of {min(sizes)}..{max(sizes)} "
+              f"frames ({len(odd)} distinct remainders mod 128) in {t_pipe:.3f} s, launches {cp}; "
+              f"each as predicted from the feeds [{gpu}]")
+
+        # -- the dashboard server on the stereo engine: every endpoint
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_live_") as tmp:
+            sfile = os.path.join(tmp, "session")
+            srv = make_server(eng, port=0, fps=10.0, state_file=sfile)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+            def get(path, code=200):
+                try:
+                    with urllib.request.urlopen(base + path, timeout=120) as r:
+                        got, body = r.status, r.read()
+                except urllib.error.HTTPError as e:
+                    got, body = e.code, e.read()
+                if got != code:
+                    fail(f"live: GET {path} answered {got}, not {code}: {body[:300]!r}")
+                return body
+
+            try:
+                page = get("/").decode()
+                if "meters_lv2_torch live" not in page or "%PORTVALS%" in page:
+                    fail("live: the dashboard page is not the port's")
+                for n in names:
+                    if get(f"/view/{n}.png?t=1")[:8] != b"\x89PNG\r\n\x1a\n":
+                        fail(f"live: /view/{n}.png is not a PNG")
+                get("/view/nope.png", 404)
+                st = json.loads(get("/state.json"))
+                if set(st) != set(names) | {"_fed_samples", "_fs"} or st["_fed_samples"] != eng.fed_samples:
+                    fail("live: /state.json keys or sample count wrong")
+                ports = json.loads(get("/ports"))
+                for action in ("pause", "reset", "reset_radar", "reset_peak", "start"):
+                    get(f"/ctl?action={action}")
+                    on_card(eng, action)
+                for m, p, v in (("spectrum", "speed", 4.0), ("r128", "radar_seconds", 240.0),
+                                ("bbcms", "s20", 1.0)):
+                    get(f"/ctl?action=set&meter={m}&param={p}&value={v}")
+                    on_card(eng, f"set {m}.{p}")
+                    if json.loads(get("/ports"))[f"{m}.{p}"] != v:
+                        fail(f"live: /ports does not read {m}.{p}={v}")
+                if int(eng._state["r128"].radar_spd) != 240 * FS // 360:
+                    fail("live: r128.radar_seconds did not reach the state")
+                body = get("/ctl?action=set&meter=spectrum&param=speed&value=nan", 500)
+                if b"non-finite" not in body or json.loads(get("/ports"))["spectrum.speed"] != 4.0:
+                    fail("live: a NaN port value was not refused")
+                # save, 1 s more; load, the same 1 s: the same readouts
+                x1 = live_signal(2, 1.0, 34)
+                get("/save")
+                reset_counts()
+                feed_file(eng, x1, FS, LIVE_CHUNK, speed=0.0)
+                a = eng.snapshot()
+                get("/load")
+                on_card(eng, "load")
+                get("/ctl?action=reset")
+                on_card(eng, "reset after load")
+                get("/load")
+                feed_file(eng, x1, FS, LIVE_CHUNK, speed=0.0)
+                b = eng.snapshot()
+                torch.cuda.synchronize()
+                on_card(eng, "feeds after load")
+                same_bits = all(np.array_equal(u, v, equal_nan=True) for (_, u), (_, v) in zip(
+                    readout_leaves(a), readout_leaves(b), strict=True))
+                w_sl, errs = ingest_compare({n: batch1(a[n]) for n in pipe_names}, 0,
+                                            {n: batch1(b[n]) for n in pipe_names}, 0, "save/load")
+                if errs:
+                    fail("live: the session after /save and /load differs: " + " | ".join(errs[:5]))
+            finally:
+                srv.shutdown()
+                srv.server_close()
+            srv2 = make_server(eng, port=0)
+            threading.Thread(target=srv2.serve_forever, daemon=True).start()
+            try:
+                base = f"http://127.0.0.1:{srv2.server_address[1]}"
+                get("/save", 400)
+            finally:
+                srv2.shutdown()
+                srv2.server_close()
+        print(f"phase live: the server on the card engine: /, the {len(names)} /view PNGs, 404 "
+              f"for an unknown meter, /state.json, /ports ({len(ports)} ports), pause, reset, "
+              f"reset_radar, reset_peak, set spectrum.speed, r128.radar_seconds and bbcms.s20, "
+              f"500 for a NaN set, /save then /load then 1 s more equal to the run that never "
+              f"loaded ({'bit for bit' if same_bits else f'{w_sl:.3g} of the bar'}), 400 for "
+              f"/save without a state file; every state tensor on the card after each control, "
+              f"set, reset and load [{gpu}]")
+
+        # -- the CPU runs
+        t_cpu0 = time.perf_counter()
+        worst, errs = {}, []
+        runs = {"stereo": (snap, hist, ring),
+                "5ch": (snap5, e5._state["r128"].hist_m.cpu().numpy(), e5._ring),
+                "pipe": (snapp, ep._state["r128"].hist_m.cpu().numpy(), ep._ring)}
+        for (run, group), job in jobs.items():
+            got, ghist, gring = runs[run]
+            cpu_snap, cpu_hist, cpu_ring = job.get(timeout=600)
+            if not np.array_equal(gring[:, -cpu_ring.shape[-1]:], cpu_ring):
+                errs.append(f"{run}: the rings differ")
+            if cpu_hist is not None and not np.array_equal(ghist, cpu_hist):
+                errs.append(f"{run}: R128 hist_m differs from the CPU run")
+            for n in group:
+                if n in DISPLAY_METERS:
+                    w, e = live_display_diff(n, got[n], cpu_snap[n], cpu_ring)
+                else:
+                    w, e = ingest_compare({n: batch1(got[n])}, 0, {n: batch1(cpu_snap[n])}, 0,
+                                          f"{run}")
+                    w = {"bar share": w}
+                errs += [f"{run} {n}: {x}" for x in e]
+                for k, v in w.items():
+                    worst[(run, k)] = max(worst.get((run, k), 0.0), v)
+        if errs:
+            fail("live: card against CPU engines: " + " | ".join(errs[:10]))
+        print(f"phase live: ok: the stereo, 5-channel and pipe-fed card engines against the same "
+              f"engines on CPU tensors ({len(jobs)} worker runs; the stereo and 5-channel ones, "
+              f"started in phase main, waited for {t_wait:.1f} s at the phase's start, the "
+              f"pipe-fed ones {time.perf_counter() - t_cpu0:.1f} s at its end): rings and R128 "
+              f"hist_m exact, worst: " + ", ".join(
+                  f"{r} {k} {v:.3g}" for (r, k), v in sorted(worst.items()))
+              + f"; the phase {time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    finally:
+        stop_live_workers()
+    return live_counts
+
+
+def batch1(o):
+    """A host readout with a leading batch axis of 1 (ingest_compare's form)."""
+    if isinstance(o, dict):
+        return {k: batch1(v) for k, v in o.items()}
+    return np.asarray(o)[None]
+
+
+def live_display_diff(name, out, out_c, ring):
+    """A display meter's readout on the card against the CPU engine's, at
+    analyzer_diff's bars (the phase wheel's against the plain transform of
+    the ring window's frames)."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import stft_fused
+
+    t = {k: torch.as_tensor(np.asarray(v))[None] for k, v in out.items()}
+    c = {k: torch.as_tensor(np.asarray(v))[None] for k, v in out_c.items()}
+    raw_c = None
+    if name == "phasewheel":
+        m = meters_lv2_torch.create(name, FS)
+        w = m.stft.hop * max(1, round(FS / m.stft.hop))
+        tail = m.init((1,), device="cpu").stft.tail
+        x = torch.as_tensor(np.ascontiguousarray(ring[:, -w:]))[None]
+        raw_c = stft_fused.plain_frames(torch.cat([tail, x], -1), m.stft.win("cpu"), m.stft.hop,
+                                        "raw", 0.0)
+    return analyzer_diff(name, t, c, raw_c)
+
+
 def stop_workers():
     global POOL
     if POOL is not None:
@@ -2947,6 +3496,7 @@ def main():
     marks.append(("device, build and kernels", time.perf_counter()))
 
     # -- 4. main path -------------------------------------------------------
+    live_jobs = live_cpu_start()  # phase live's CPU engines, from here to the end of phase golden
     meter = meters_lv2_torch.create("EBUr128", FS, nchan=2)
     blocks = main_blocks()
     st = meter.init((B_MAIN,), device=dev)
@@ -3232,7 +3782,11 @@ def main():
     ingest_launches = ingest_phase(dev, gpu, reset_counts, launch_counts)
     marks.append(("ingest", time.perf_counter()))
 
-    # -- 7. times -----------------------------------------------------------
+    # -- 7. live ------------------------------------------------------------
+    live_launches = live_phase(dev, gpu, reset_counts, launch_counts, live_jobs)
+    marks.append(("live", time.perf_counter()))
+
+    # -- 8. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
     xd, zd, hd = on_card(x, z0, h0)
     xf = xd.reshape(B_MAIN, -1)
@@ -3429,6 +3983,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_r128.py:287",
         "launches": launches,
         "ingest_launches": ingest_launches["r128_fused"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["r128_fused"],  # phase live's four engine runs
         "max_abs_err": main_err,  # p at the main-path shape, vs plain version
         "ms": ms_kernel,
         "plain_ms": ms_plain,
@@ -3442,6 +3997,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_ballistics.py:133",
         "launches": ball_launches,  # dBTP's tails
         "ingest_launches": ingest_launches["ballistics"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["ballistics"],  # phase live's four engine runs
         "max_abs_err": ball_err,  # all outputs at the main-path shape
         "ms": times["ballistics"][0],  # alternated with the envelope body
         "plain_ms": times["ballistics"][1],
@@ -3455,6 +4011,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_truepeak.py:161",
         "launches": tp_launches,
         "ingest_launches": ingest_launches["truepeak_fused"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["truepeak_fused"],  # phase live's four engine runs
         "max_abs_err": tp_err,  # z1, z2, m, p at the main-path shape
         "ms": times["truepeak_fused"][0],  # the default (envelope) body
         "plain_ms": times["truepeak_fused"][1],  # its plain version, one call
@@ -3471,6 +4028,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_bitmeter.py:179",
         "launches": bit_launches,
         "ingest_launches": ingest_launches["bitmeter_stats"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["bitmeter_stats"],  # phase live's four engine runs
         "max_abs_err": bit_err,  # every field at the main-path shape
         "ms": times["bitmeter_stats"][0],
         "plain_ms": times["bitmeter_stats"][1],
@@ -3486,6 +4044,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_spectrum.py:357",
         "launches": spec_main + spec_tail,
         "ingest_launches": ingest_launches["spectrum_fused"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["spectrum_fused"],  # phase live's four engine runs
         "max_abs_err": spec_err,  # val, peak and zf at the main-path shape
         "ms": times["spectrum_fused"][0],
         "plain_ms": times["spectrum_fused"][1],
@@ -3499,6 +4058,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_surround.py:371",
         "launches": sur_launches,
         "ingest_launches": ingest_launches["surround_fused"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["surround_fused"],  # phase live's four engine runs
         "max_abs_err": sur_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000
         "ms": times["surround_fused"][0],  # C=8; C=5 is printed in phase times
         "plain_ms": times["surround_fused"][1],
@@ -3512,6 +4072,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_stft.py:216",
         "launches": stft_launches,
         "ingest_launches": ingest_launches["stft_fused"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["stft_fused"],  # phase live's four engine runs
         "max_abs_err": stft_err,  # raw re/im at the main-path shape, vs plain version
         "ms": times["stft_fused"][0],  # phasewheel mode, the main path's
         "plain_ms": times["stft_fused"][1],
@@ -3527,6 +4088,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_ballistics.py:61",
         "launches": env_launches,  # BBCstereo, DINstereo and BBCM6 on the default path
         "ingest_launches": ingest_launches["ballistics_envelope"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["ballistics_envelope"],  # phase live's four engine runs
         "max_abs_err": env_err,  # at N=512 vs plain version (bit-exact); vs serial in phase kernels
         "ms": times["ballistics_envelope"][0],  # alternated with the serial body
         "plain_ms": times["ballistics_envelope"][1],
@@ -3542,6 +4104,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_r128.py:298",
         "launches": seg_launches,  # the 12 main-path blocks through fused_core(off=...)
         "ingest_launches": ingest_launches["r128_fused_seg"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["r128_fused_seg"],  # phase live's four engine runs
         "max_abs_err": seg_err,  # seg at the main-path shape, vs plain version
         "ms": var_times["seg"][0],
         "plain_ms": var_times["seg"][1],
@@ -3555,6 +4118,7 @@ def main():
         "replaces": "meters_lv2_tpu/ops/pallas_surround.py:252",
         "launches": wide_launches,  # surround5 and surround8 with METERS_TORCH_SURROUND_WIDE=1
         "ingest_launches": ingest_launches["surround_fused_wide"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["surround_fused_wide"],  # phase live's four engine runs
         "max_abs_err": wide_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000, vs plain
         "ms": var_times["wide C=8"][0],  # C=5 is printed in phase times
         "plain_ms": var_times["wide C=8"][1],

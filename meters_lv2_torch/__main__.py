@@ -97,7 +97,11 @@ def parse_surround_pairs(spec, nchan: int, error):
     return tuple(pairs)
 
 
-def build_meter(name: str, fs: float, nchan: int, surround_pairs=None):
+def build_meter(name: str, fs: float, nchan: int, surround_pairs=None,
+                runtime_ports: bool = False):
+    """runtime_ports=True builds meters with their runtime-mutable control
+    ports enabled (the r128 radar interval as state): the live shell's
+    meters, where controls arrive mid-stream like LV2 port writes."""
     from .models import (
         cor, dr14, ebur128, goniometer, kmeter, needle, phasewheel,
         sigdist, spectrum, surround, truepeak, bitmeter,
@@ -111,7 +115,8 @@ def build_meter(name: str, fs: float, nchan: int, surround_pairs=None):
         return cls(fs, pairs=surround_pairs)
 
     table = {
-        "r128": lambda: ebur128.EbuR128Meter(fs, nchan=nchan),
+        "r128": lambda: ebur128.EbuR128Meter(
+            fs, nchan=nchan, runtime_radar_speed=runtime_ports),
         "truepeak": lambda: truepeak.TruePeakMeter(fs),
         "vu": lambda: needle.VUMeter(fs),
         "din": lambda: needle.DINMeter(fs),

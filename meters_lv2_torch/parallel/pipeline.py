@@ -17,12 +17,13 @@ meters' kernels as it comes; the JAX package's jit cache has no counterpart.
 
 from __future__ import annotations
 
-import dataclasses
 import inspect
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ..utils.interop import tree_map
 
 # how each meter family consumes the [..., C, T] pipeline input, by class
 # name (the port's classes carry the JAX package's names)
@@ -69,15 +70,13 @@ def freeze(old, new, alive: torch.Tensor):
     ``alive`` is a stream-shared config leaf (spectrum's omega) and passes
     through from ``new``.  Trailing dims of a leaf (a per_channel state's
     channel axis, a meter's own) broadcast against ``alive``."""
-    if dataclasses.is_dataclass(old):
-        return type(old)(**{
-            f.name: freeze(getattr(old, f.name), getattr(new, f.name), alive)
-            for f in dataclasses.fields(old)})
-    if isinstance(old, dict):
-        return {k: freeze(v, new[k], alive) for k, v in old.items()}
-    if old.ndim < alive.ndim:
-        return new
-    return torch.where(alive.reshape(alive.shape + (1,) * (old.ndim - alive.ndim)), new, old)
+
+    def pick(o, n):
+        if o.ndim < alive.ndim:
+            return n
+        return torch.where(alive.reshape(alive.shape + (1,) * (o.ndim - alive.ndim)), n, o)
+
+    return tree_map(pick, old, new)
 
 
 class MeterPipeline:

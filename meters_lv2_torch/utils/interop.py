@@ -9,7 +9,14 @@ dict of its fields; a field that is itself a state (``BBCMSState.mid``,
 ``SurroundState.km``, ``PhaseWheelState.stft`` and ``.cor``) is a nested
 dict.  The stereoscope keeps its state as a dict, as the JAX package does;
 ``cls`` is then a dict of each key's class
-(``models.phasewheel.STEREOSCOPE_STATE``).  Nothing here imports jax.
+(``models.phasewheel.STEREOSCOPE_STATE``).
+
+``tree_flatten`` / ``tree_unflatten`` / ``tree_map`` walk such trees (and
+the live shell's session trees) in the JAX package's leaf order: dataclass
+fields in order, dict keys sorted, ``None`` holding no leaf.  A list of
+leaves from one package therefore lines up with the other's, which is what
+``utils/state.py`` relies on to exchange checkpoints.  Nothing here imports
+jax.
 """
 
 from __future__ import annotations
@@ -22,6 +29,73 @@ import torch
 
 from ..models.ebur128 import EbuR128State
 from ..ops.lti import block_op_tensors as block_op_to_torch  # noqa: F401
+
+
+def _node(tree):
+    """(kind, keys, children) of an inner node of a tree, or None for a
+    leaf.  kind is the dataclass's type, ``dict``, or NoneType (no leaf)."""
+    if tree is None:
+        return type(None), (), ()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        names = tuple(f.name for f in dataclasses.fields(tree))
+        return type(tree), names, tuple(getattr(tree, k) for k in names)
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        return dict, keys, tuple(tree[k] for k in keys)
+    return None
+
+
+def _build(kind, keys, children):
+    if kind is type(None):
+        return None
+    fields = dict(zip(keys, children))
+    return fields if kind is dict else kind(**fields)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of the
+    trees in ``rest`` (of the same structure), rebuilt in ``tree``'s
+    structure.  Matching goes by field name and dict key, so the walk
+    needs no leaf order: a dict keeps its own key order and nothing is
+    sorted (the ragged pipeline maps each state once a step)."""
+    if tree is None:
+        return None
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{
+            f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_flatten(tree):
+    """(leaves, treedef): the leaves in the JAX package's order and the
+    structure that ``tree_unflatten`` rebuilds from them."""
+    leaves = []
+
+    def walk(t):
+        node = _node(t)
+        if node is None:
+            leaves.append(t)
+            return None
+        kind, keys, children = node
+        return kind, keys, tuple(walk(c) for c in children)
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves):
+    """The tree of ``treedef`` (from ``tree_flatten``) holding ``leaves``."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, keys, children = d
+        return _build(kind, keys, tuple(build(c) for c in children))
+
+    return build(treedef)
 
 
 def state_from_numpy(arrays: dict, device="cuda", cls: type = EbuR128State):

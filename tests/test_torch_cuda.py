@@ -1137,3 +1137,89 @@ def test_load_files_resamples_on_card(cuda, tmp_path):
     np.testing.assert_array_equal(g.lengths, c.lengths)
     np.testing.assert_allclose(g.data, c.data, rtol=0, atol=1e-6)
     np.testing.assert_array_equal(g.data[1], c.data[1])
+
+
+def _live_close(got, want, tag):
+    """A live engine's host readouts, card against CPU: integer leaves
+    exact; R128's loudness keys within 1e-4; every other float within
+    1e-4 + 1e-4 |value| with the same non-finite entries (the ingest bars
+    of chip_smoke.py)."""
+    def leaves(o, path=""):
+        if isinstance(o, dict):
+            for k, v in sorted(o.items()):
+                yield from leaves(v, f"{path}.{k}")
+        else:
+            yield path, np.asarray(o)
+
+    for (k, a), (k2, b) in zip(leaves(got), leaves(want), strict=True):
+        assert k == k2 and a.shape == b.shape, (tag, k)
+        if b.dtype.kind in "iub":
+            np.testing.assert_array_equal(a, b, err_msg=f"{tag}{k}")
+            continue
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b), err_msg=f"{tag}{k}")
+        f = np.isfinite(b)
+        bar = 1e-4 if tag.startswith("r128") and k.lstrip(".") in (
+            "loudness_M", "loudness_S", "max_M", "integrated", "dbtp") else 1e-4 + 1e-4 * np.abs(b[f])
+        assert np.all(np.abs(a[f] - b[f]) <= bar), (tag, k, float(np.abs(a[f] - b[f]).max()))
+
+
+@pytest.mark.parametrize("nchan", [2, 5])
+def test_live_engine_on_card_matches_cpu(cuda, nchan):
+    """The live shell's engine at --meters all (its measuring meters) on the
+    card against the same engine on CPU tensors, fed 1 s in the shell's
+    0.5 s chunks and a ragged block: R128's histograms exact, readouts at
+    the ingest bars."""
+    from meters_lv2_torch.__main__ import DISPLAY_METERS, applicable_meters
+    from meters_lv2_torch.live import LiveEngine
+
+    names = [n for n in applicable_meters(nchan) if n not in DISPLAY_METERS]
+    rng = np.random.default_rng(nchan)
+    x = (0.2 * rng.standard_normal((nchan, 48000 + 1001))).astype(np.float32)
+    engines = [LiveEngine(names, 48000, nchan, device=d) for d in (cuda, "cpu")]
+    for e in engines:
+        for i in range(0, x.shape[-1], 24000):
+            e.feed(x[:, i:i + 24000])
+    g, c = (e.snapshot() for e in engines)
+    assert torch.equal(engines[0]._state["r128"].hist_m.cpu(), engines[1]._state["r128"].hist_m)
+    for n in names:
+        _live_close(g[n], c[n], n)
+
+
+def test_live_state_stays_on_card_after_reset_and_load(cuda, tmp_path):
+    """After every control, port write, save and load, each state tensor of
+    a card engine is still on the card."""
+    from meters_lv2_torch.live import LiveEngine
+    from meters_lv2_torch.utils.interop import tree_flatten
+
+    names = ["r128", "spectrum", "vu", "k20", "bbcms", "goniometer"]
+    eng = LiveEngine(names, 48000, 2, device=cuda)
+
+    def on_card():
+        leaves = [t for t in tree_flatten(eng._state)[0] if isinstance(t, torch.Tensor)]
+        return len(leaves) > 0 and all(t.is_cuda for t in leaves)
+
+    x = (0.2 * np.random.default_rng(1).standard_normal((2, 24000))).astype(np.float32)
+    eng.feed(x)
+    assert on_card()
+    for action in ("pause", "start", "reset_radar", "reset_peak", "reset"):
+        eng.control(action)
+        assert on_card(), action
+    eng.set_port("spectrum", "speed", 3.0)
+    eng.set_port("r128", "radar_seconds", 60.0)
+    eng.set_port("bbcms", "s20", 1)
+    assert on_card()
+    eng.feed(x)
+    path = str(tmp_path / "s.npz")
+    eng.save(path)
+    before = eng.snapshot()
+    eng.control("reset")
+    eng.load(path)
+    assert on_card()
+    after = eng.snapshot()
+    for n in names:
+        for k, v in (before[n].items() if isinstance(before[n], dict) else [("", before[n])]):
+            w = after[n][k] if k else after[n]
+            np.testing.assert_array_equal(v, w, err_msg=f"{n}.{k}")
+    eng.feed(x)
+    assert on_card() and eng.frame("r128")[:8] == b"\x89PNG\r\n\x1a\n"

@@ -87,6 +87,31 @@ def test_ingest_pipeline_and_cli_import_no_jax():
     assert r.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_live_shell_and_host_utils_import_no_jax():
+    """The live shell and the host utilities it rests on (checkpoints,
+    transport following, profiling) import neither jax nor meters_lv2_tpu;
+    an engine runs on CPU tensors when asked."""
+    code = (
+        "import sys\n"
+        "import meters_lv2_torch.live as live\n"
+        "import meters_lv2_torch.utils.state, meters_lv2_torch.utils.transport\n"
+        "import meters_lv2_torch.utils.profiler\n"
+        "eng = live.LiveEngine(['k20', 'goniometer'], 48000, 2, device='cpu')\n"
+        "import numpy as np\n"
+        "eng.feed(np.zeros((2, 1000), np.float32))\n"
+        "assert set(eng.snapshot()) == {'k20', 'goniometer'}\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_registry_names_every_jax_meter():
     """Every meter of the JAX package is available in the port: none is
     left in NOT_YET_PORTED."""
