@@ -128,7 +128,25 @@ Phases, each printed on its own line; any failure exits non-zero:
               writes, a NaN write refused with 500, /save then /load then
               1 s more against the run that never loaded, every state
               tensor still on the card after each control and load;
-  8. times    each kernel vs its plain version, truepeak_fused's envelope
+  8. sharded  the whole-file analyses (parallel/*_sharded.py) on 4 ranks
+              launched on the one card (gloo, host-staged collectives; the
+              backend, world size, card count and each rank's device
+              printed): R128 at B=16 x 600 s stereo (T = 28,800,000) and
+              the spectrum (30 s), dBTP, DR-14, TP+RMS, sigdist (both
+              modes), the bit meter, VU, DIN, BBC, BBC M-6, K20, COR,
+              surround5 and surround8 at B=8 x 61 s, under dp x sp = 2 x 2
+              and 1 x 4, each rank making only its own blocks of the
+              seeded signal; every result against one serial update on the
+              card; each rank's launches of r128_fused (1 an R128
+              analysis), the ballistics envelope body (sp a chain, 2 sp for
+              M-6) and bitmeter_stats (1) held to the prediction; on the
+              rank at sp index 1 (a non-zero entry state) r128_fused on its
+              shard, a chain step's ballistics call and bitmeter_stats
+              against their plain versions; an R128 state over dp = 4 saved
+              with save_state_sharded, loaded on the card and carried one
+              more second bit for bit; the wall time of each analysis per
+              layout and of the serial update as x-realtime;
+  9. times    each kernel vs its plain version, truepeak_fused's envelope
               and serial bodies alternated at N=512 and N=8,192, the
               ballistics kernel's envelope and serial bodies alternated at
               N=512 and at 4,224 to 33,792 rows, and main-path x-realtime
@@ -3265,6 +3283,590 @@ def stop_workers():
         POOL = None
 
 
+# ---------------------------------------------------------------------------
+# Phase sharded: the whole-file analyses (parallel/*_sharded.py) on 4 ranks
+# that share the one card (gloo, host-staged collectives)
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 4
+SHARD_LAYOUTS = ((2, 2), (1, 4))  # (dp, sp)
+SHARD_R128 = (16, 600)  # R128: stereo programmes, seconds (T = 28,800,000)
+# R128 at 44.1 kHz: no shard is 128-aligned (fragm = 2205), so every rank
+# runs the kernel on its bulk and the meter's plain ops on the remainder
+SHARD_R128_44K = (8, 60)
+FS_44K = 44100
+SHARD_B, SHARD_S, SHARD_SPEC_S = 8, 61, 30  # the other families
+SHARD_SEED = 19
+SHARD_TONES = (100.0, 220.0, 440.0, 997.0, 1499.0, 3000.0, 5000.0, 9000.0)
+SHARD_WIN = FS  # samples of each window of the chain step held against the plain ballistics
+# family: (meter, analyze_* name, analyze kwargs, input: "mono" [2B, T] rows,
+# "stereo" [B, 2, T], "sur5" [B, 5, T], "sur8" [B, 8, T]; the spectrum's
+# stereo [B, 2, 30 s])
+SHARD_FAMILIES = {
+    "spectr30stereo": ("spectr30stereo", {}, "analyze_spectrum", {}, "spec"),
+    "dBTP": ("dBTPmono", {}, "analyze_truepeak", {}, "mono"),
+    "DR14": ("dr14stereo", {}, "analyze_dr14", {}, "stereo"),
+    "TPnRMS": ("TPnRMSstereo", {}, "analyze_tpnrms", {}, "stereo"),
+    "sigdist": ("SigDistHist", {}, "analyze_sigdist", {}, "mono"),
+    "sigdist_oor": ("SigDistHist", {"reference_oor_count": True}, "analyze_sigdist", {},
+                    "mono"),
+    "bitmeter": ("bitmeter", {}, "analyze_bitmeter", {}, "mono"),
+    "VU": ("VUmono", {}, "analyze_needle", {}, "mono"),
+    "DIN": ("DINmono", {}, "analyze_needle", {}, "mono"),
+    "BBC": ("BBCmono", {}, "analyze_needle", {}, "mono"),
+    "BBCM6": ("BBCM6", {}, "analyze_needle", {}, "stereo"),
+    "K20": ("K20mono", {}, "analyze_kmeter", {}, "mono"),
+    "COR": ("COR", {}, "analyze_stcorr", {}, "stereo"),
+    "surround5": ("surround5", {}, "analyze_surround", {}, "sur5"),
+    "surround8": ("surround8", {}, "analyze_surround", {}, "sur8"),
+}
+# the chains of each family on a rank: its ballistics launches are nsp each
+SHARD_CHAINS = {"dBTP": 1, "DR14": 1, "TPnRMS": 1, "DIN": 1, "BBC": 1, "BBCM6": 2}
+SHARD_KERNELS = ("r128_fused", "ballistics", "truepeak_fused", "bitmeter_stats",
+                 "spectrum_fused", "surround_fused", "stft_fused", "ballistics_envelope",
+                 "r128_fused_seg", "surround_fused_wide", "truepeak_fused_serial")
+
+
+def shard_signal(streams, C, first, seconds, seed, fs=FS):
+    """[len(streams), C, seconds * fs] float32: per stream and second a
+    block of tones (one of SHARD_TONES a channel) plus uniform noise at a
+    level between 0 and -30 dB, each block from
+    np.random.default_rng([seed, stream, second]), so that any rank makes
+    exactly its own blocks of the whole signal."""
+    t = np.arange(fs) / fs
+    tones = np.stack([np.sin(2 * np.pi * f * t) for f in SHARD_TONES]).astype(np.float32)
+    out = np.empty((len(streams), C, seconds * fs), np.float32)
+    for i, s in enumerate(streams):
+        for j in range(seconds):
+            rng = np.random.default_rng([seed, s, first + j])
+            gain = np.float32(10.0 ** (-1.5 * rng.random()))
+            amp = rng.random(C, dtype=np.float32) * gain
+            k = rng.integers(0, len(SHARD_TONES), C)
+            blk = out[i, :, j * fs:(j + 1) * fs]
+            blk[...] = rng.random((C, fs), dtype=np.float32)
+            blk -= np.float32(0.5)
+            blk *= np.float32(0.2) * gain
+            blk += amp[:, None] * tones[k]
+    return out
+
+
+def shard_inputs(kind, streams, first, seconds, fs=FS):
+    """The input of a family of kind ``kind`` for stereo programmes
+    ``streams`` over seconds [first, first + seconds) at rate ``fs``: "mono"
+    is the stereo signal as [2 len(streams), T] rows (channel c of
+    programme s in row 2 s + c), the surround kinds have seeds of their
+    own."""
+    if kind == "sur5":
+        return shard_signal(streams, 5, first, seconds, SHARD_SEED + 5, fs)
+    if kind == "sur8":
+        return shard_signal(streams, 8, first, seconds, SHARD_SEED + 8, fs)
+    x = shard_signal(streams, 2, first, seconds, SHARD_SEED, fs)
+    return x.reshape(-1, x.shape[-1]) if kind == "mono" else x
+
+
+def shard_local(kind, streams, seconds, sp, fs=FS):
+    """A rank's time block (sp index ``sp.index`` of ``sp.size``) of a
+    family's input over ``seconds`` at rate ``fs``: made block by block
+    where the shard is whole seconds, else cut from the rank's programmes
+    over the whole span."""
+    n = seconds * fs // sp.size
+    if n % fs:
+        whole = shard_inputs(kind, streams, 0, seconds, fs)
+        return np.ascontiguousarray(whole[..., sp.index * n:(sp.index + 1) * n])
+    return shard_inputs(kind, streams, sp.index * n // fs, n // fs, fs)
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count back to 0."""
+    from meters_lv2_torch.ops import (
+        ballistics_core, bitmeter_stats, r128_fused, spectrum_fused, stft_fused, surround_fused,
+        truepeak_fused)
+
+    r128_fused.launch_count = r128_fused.seg_launch_count = 0
+    ballistics_core.launch_count = ballistics_core.envelope_launch_count = 0
+    truepeak_fused.launch_count = truepeak_fused.serial_launch_count = 0
+    bitmeter_stats.launch_count = 0
+    spectrum_fused.launch_count = 0
+    surround_fused.launch_count = surround_fused.wide_launch_count = 0
+    stft_fused.launch_count = 0
+
+
+def launch_counts():
+    """The kernel wrappers' launch counts by kernel name, without
+    truepeak_fused's serial body (the meters run it only below 4,300 Hz)."""
+    from meters_lv2_torch.ops import (
+        ballistics_core, bitmeter_stats, r128_fused, spectrum_fused, stft_fused, surround_fused,
+        truepeak_fused)
+
+    return {"r128_fused": r128_fused.launch_count, "ballistics": ballistics_core.launch_count,
+            "truepeak_fused": truepeak_fused.launch_count,
+            "bitmeter_stats": bitmeter_stats.launch_count,
+            "spectrum_fused": spectrum_fused.launch_count,
+            "surround_fused": surround_fused.launch_count,
+            "stft_fused": stft_fused.launch_count,
+            "ballistics_envelope": ballistics_core.envelope_launch_count,
+            "r128_fused_seg": r128_fused.seg_launch_count,
+            "surround_fused_wide": surround_fused.wide_launch_count}
+
+
+def shard_predicted(family, nsp):
+    """The kernel launches one rank makes in one analyze_* call."""
+    want = dict.fromkeys(SHARD_KERNELS, 0)
+    if family.startswith("R128"):
+        want["r128_fused"] = 1
+    elif family == "bitmeter":
+        want["bitmeter_stats"] = 1
+    elif family in SHARD_CHAINS:  # the envelope body: <= ENVELOPE_MAX_ROWS rows
+        want["ballistics_envelope"] = SHARD_CHAINS[family] * nsp
+    return want
+
+
+def shard_kernel_checks(mesh, m128, x128, tp, x_mono, bit_rows):
+    """Rows 1, 2e and 7 against their plain versions on the rank at sp
+    index 1 and dp index 0 of the first layout (a non-zero entry state):
+    r128_fused on its whole shard from the composed entry state and the
+    47-sample halo; bitmeter_stats on its shard; the envelope body at the
+    length the path gives it: dBTP's chain step 1 over the rank's whole 4x
+    upsampled series (its entry state shard 0's exit).  A plain run over
+    the whole series would take minutes, so three SHARD_WIN windows of it
+    are held bit for bit: at its head from the chain's entry state, in its
+    middle and at its end, each from the state a kernel run over the
+    series up to the window leaves, each against the kernel run from the
+    entry state to the window's end (at the end, the chain step's own call).
+    The ranks of every 'sp' group take part in the collectives; all but
+    that one return None.  Returns (text, max errors, breaches)."""
+    import io
+
+    import torch
+
+    from meters_lv2_torch.ops import ballistics_core, bitmeter_stats, r128_fused, resample
+    from meters_lv2_torch.ops import ballistics as bal
+    from meters_lv2_torch.parallel.meters_sharded import _halo47
+    from meters_lv2_torch.parallel.timepar import lti_entry_state_sp
+
+    sp = mesh.sp
+    B, C, _ = x128.shape
+    s_in = lti_entry_state_sp(m128.sys, x128, torch.zeros((B, C, 4), device=x128.device), sp)
+    halo = sp.shift(x128[..., -47:].contiguous())
+    up, _ = resample.upsample4(x_mono, _halo47(x_mono, sp))
+    t_abs = up.abs().reshape(-1, up.shape[-1])
+    del up
+    z = torch.zeros(t_abs.shape[0], device=x128.device)
+    out0 = bal._run_ballistics(tp.coeffs, t_abs, z, z, z, z)
+    carry = sp.select(0, torch.stack(out0)).unbind(0)
+    if (mesh.dp.index, sp.index) != (0, 1):
+        return None
+    buf = io.StringIO()
+    errs, worst = [], {}
+    with contextlib.redirect_stdout(buf):
+        op = m128.sys.op(r128_fused.BLOCK)
+        got = r128_fused.fused_core(x128, s_in, halo, m128.gains, op)
+        ref = r128_fused.fused_core_reference(x128, s_in, halo, m128.gains, op)
+        worst["r128_fused"], e = compare_core(
+            got, ref, f"r128_fused on rank {mesh.rank}'s shard {tuple(x128.shape)}, entry state "
+            f"|s_in| max {s_in.abs().max().item():.3g}")
+        errs += e
+        del got, ref
+        w = dict(w1=tp.coeffs.w1, w2=tp.coeffs.w2, w3=tp.coeffs.w3, track_peak=True)
+
+        def kernel(n):  # the envelope kernel over the series' first n samples from the carry
+            rows = t_abs if n == t_abs.shape[-1] else t_abs[:, :n].contiguous()
+            return ballistics_core.ballistics(rows, *carry, **w, envelope=True)
+
+        L4 = t_abs.shape[-1]
+        worst["ballistics_envelope"] = 0.0
+        for o in (0, (L4 // 2 - SHARD_WIN) // 4 * 4, L4 - SHARD_WIN):
+            state = kernel(o) if o else carry
+            ref = ballistics_core.ballistics_envelope_reference(
+                t_abs[:, o:o + SHARD_WIN].contiguous(), *state, **w)
+            err, e = compare_ballistics(
+                kernel(o + SHARD_WIN), ref, f"envelope, dBTP chain step 1 on rank {mesh.rank}'s "
+                f"{L4}-sample upsampled series ({t_abs.shape[0]} rows), samples [{o}, "
+                f"{o + SHARD_WIN}) from {'the entry state' if not o else 'the kernel state'} "
+                f"(z1 max {state[0].max().item():.3g})")
+            worst["ballistics_envelope"] = max(worst["ballistics_envelope"], err)
+            errs += e
+        got = bitmeter_stats.bitmeter_stats(bit_rows)
+        ref = bitmeter_stats.bitmeter_stats_reference(bit_rows)
+        worst["bitmeter_stats"], e = compare_bitstats(
+            got, ref, f"on rank {mesh.rank}'s shard {tuple(bit_rows.shape)}")
+        errs += e
+    return buf.getvalue(), worst, errs
+
+
+def sharded_rank(rank, ckpt_dir):
+    """One rank of phase sharded: R128 at full width and every other family
+    under both layouts, the kernel checks, the sharded checkpoint.  Returns
+    host values only: rank 0's gathered readouts, every rank's launches,
+    times and checks."""
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.ops import truepeak_fused
+    from meters_lv2_torch.parallel import (
+        gather_outputs, make_mesh, meters_sharded, r128_sharded, spectrum_sharded)
+    from meters_lv2_torch.runtime import build
+    from meters_lv2_torch.utils.state import load_state_sharded, save_state_sharded
+
+    build.kernels()  # the parent's build
+    res = {"rank": rank, "launches": {}, "times": {}, "first": {}, "mem": {}, "out": {},
+           "remainder": {}, "checks": None}
+    for dp, sp in SHARD_LAYOUTS:
+        mesh = make_mesh(dp, sp)
+        res["device"], res["backend"], res["staged"] = str(mesh.device), mesh.backend, mesh.staged
+        dev = mesh.device
+
+        def timed(key, fn):
+            """fn's wall time on this rank, its launches; under the first
+            layout an untimed first run before it (its time kept apart:
+            the process's first use of each analysis)."""
+            for first in ((True, False) if (dp, sp) == SHARD_LAYOUTS[0] else (False,)):
+                mesh.barrier()
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                res["first" if first else "times"][key] = time.perf_counter() - t0
+            res["launches"][key] = {
+                **launch_counts(), "truepeak_fused_serial": truepeak_fused.serial_launch_count}
+            return out
+
+        # R128 at full width: this rank's programmes and seconds only
+        B, S = SHARD_R128
+        bl = B // dp
+        streams = range(mesh.dp.index * bl, (mesh.dp.index + 1) * bl)
+        x = torch.from_numpy(shard_local("stereo", streams, S, mesh.sp)).to(dev)
+        m128 = meters_lv2_torch.create("EBUr128", FS, nchan=2)
+        torch.cuda.reset_peak_memory_stats()
+        out = timed(("R128", dp, sp), lambda: r128_sharded.analyze_r128(m128, x, mesh))
+        res["mem"][dp, sp] = torch.cuda.max_memory_allocated()
+        out = gather_outputs(out, mesh, r128_sharded.OUT_SPECS)
+        if rank == 0:
+            res["out"]["R128", dp, sp] = {k: v.cpu() for k, v in out.items()}
+        del out
+
+        # R128 at 44.1 kHz: the kernel's bulk and the plain remainder on every rank
+        B, S = SHARD_R128_44K
+        bl = B // dp
+        streams = range(mesh.dp.index * bl, (mesh.dp.index + 1) * bl)
+        x44 = torch.from_numpy(shard_local("stereo", streams, S, mesh.sp, FS_44K)).to(dev)
+        m44 = meters_lv2_torch.create("EBUr128", FS_44K, nchan=2)
+        out = timed(("R128_44k", dp, sp), lambda: r128_sharded.analyze_r128(m44, x44, mesh))
+        out = gather_outputs(out, mesh, r128_sharded.OUT_SPECS)
+        res["remainder"][dp, sp] = x44.shape[-1] % 128
+        if rank == 0:
+            res["out"]["R128_44k", dp, sp] = {k: v.cpu() for k, v in out.items()}
+        del out, x44
+
+        # the other families, B stereo programmes of SHARD_S (spectrum SHARD_SPEC_S) s
+        bl = SHARD_B // dp
+        streams = range(mesh.dp.index * bl, (mesh.dp.index + 1) * bl)
+        inputs = {kind: torch.from_numpy(shard_local(kind, streams, SHARD_S, mesh.sp)).to(dev)
+                  for kind in ("mono", "stereo", "sur5", "sur8")}
+        inputs["spec"] = torch.from_numpy(
+            shard_local("stereo", streams, SHARD_SPEC_S, mesh.sp)).to(dev)
+        for fam, (name, kw, fn, akw, kind) in SHARD_FAMILIES.items():
+            m = meters_lv2_torch.create(name, FS, **kw)
+            mod = spectrum_sharded if fn == "analyze_spectrum" else meters_sharded
+            out = timed((fam, dp, sp), lambda: getattr(mod, fn)(m, inputs[kind], mesh, **akw))
+            if fn == "analyze_spectrum":
+                out = out[0]
+            out = gather_outputs(out if isinstance(out, dict) else {"value": out}, mesh)
+            if rank == 0:
+                res["out"][fam, dp, sp] = {k: v.cpu() for k, v in out.items()}
+
+        if (dp, sp) == SHARD_LAYOUTS[0]:
+            res["checks"] = shard_kernel_checks(
+                mesh, m128, x, meters_lv2_torch.create("dBTPmono", FS), inputs["mono"],
+                inputs["mono"])
+        del x, inputs
+        torch.cuda.empty_cache()
+
+    # sharded checkpoint: an R128 state over dp = 4 after one 1 s update,
+    # saved, loaded, one more update against the run that never saved
+    mesh = make_mesh(SHARD_RANKS, 1)
+    dev = mesh.device
+    bl = SHARD_R128[0] // SHARD_RANKS
+    x = torch.from_numpy(shard_signal(range(rank * bl, (rank + 1) * bl), 2, 0, 2,
+                                      SHARD_SEED)).to(dev)
+    m = meters_lv2_torch.create("EBUr128", FS, nchan=2)
+    st = m.update(m.init((bl,)), x[..., :FS])
+    save_state_sharded(st, ckpt_dir, mesh)
+    loaded = load_state_sharded(m.init((bl,)), ckpt_dir, mesh)
+    on_card = all(getattr(loaded, f).device == dev for f in loaded.__dataclass_fields__)
+    a, b = m.update(loaded, x[..., FS:]), m.update(st, x[..., FS:])
+    res["ckpt"] = {"files": sorted(os.listdir(ckpt_dir)), "on_card": on_card,
+                   "same": all(torch.equal(getattr(a, f), getattr(b, f))
+                               for f in a.__dataclass_fields__)}
+    return res
+
+
+def shard_serial(fam, dev, x):
+    """One serial update + read of the port on the card over the whole
+    input; returns (readouts on the host, seconds of the update + read)."""
+    import torch
+
+    import meters_lv2_torch
+
+    name, kw, fn, akw, kind = SHARD_FAMILIES[fam]
+    m = meters_lv2_torch.create(name, FS, **kw)
+    xt = torch.from_numpy(x).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = m.init(x.shape[:1] if kind != "mono" else x.shape[:-1])
+    st = m.update(st, xt, stereo=True) if fn == "analyze_spectrum" else m.update(st, xt)
+    out = m.read(st)[0]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = out if isinstance(out, dict) else {"value": out}
+    return {k: v.cpu() for k, v in out.items()}, dt
+
+
+def shard_compare(fam, got, want, abs_sum=None):
+    """A sharded readout against the serial one at the bars of
+    tests/test_meters_sharded.py and tests/test_pipeline_and_parallel.py,
+    with two differences.  On the card the serial dBTP, DR-14 and TP+RMS
+    run truepeak_fused (its FIR on the card) and the sharded ones
+    resample.upsample4's cuBLAS products, so their true-peak readouts are
+    held at TPK_RTOL (in dB for DR-14 and TP+RMS) where the CPU test holds
+    them exact.  sigdist's running sum (hist_avg) adds to that file's bar
+    the float32 bound of two summation orders over T samples,
+    2 log2(T) 2^-24 sum|x| (``abs_sum``, per row): tones sum to near zero,
+    so a bar relative to the sum alone would be one of cancellation.
+    Returns (worst share of a bar, breaches)."""
+    import torch
+
+    errs, worst = [], 0.0
+
+    def exact(*keys):
+        for k in keys:
+            a, b = got[k], want[k]
+            if not (same_bits(a, b) if a.is_floating_point() else torch.equal(a, b)):
+                errs.append(f"{fam} {k} not exact")
+
+    def close(k, rtol=0.0, atol=0.0):
+        nonlocal worst
+        a, b = got[k].double(), want[k].double()
+        if not same_nonfinite(a, b):
+            errs.append(f"{fam} {k}: non-finite values differ")
+        f = torch.isfinite(b)
+        bar = rtol * b.abs()[f] + atol
+        d = (a - b).abs()[f]
+        if d.numel():
+            share = (d / bar).max().item()
+            worst = max(worst, share)
+            if share > 1.0:
+                errs.append(f"{fam} {k}: max abs err {d.max().item():.3g} over its bar")
+
+    tp_db = 20 * math.log10(1 + TPK_RTOL)
+    if fam.startswith("R128"):
+        exact("hist_m", "hist_s", "count_m", "count_s", "radar_pos")
+        for k in ("max_M", "max_S", "radar_m", "radar_s"):
+            close(k, atol=1e-5)
+        for k in ("integrated", "integ_thr", "range_min", "range_max", "range_thr", "lra",
+                  "loudness_M", "loudness_S"):
+            close(k, atol=1e-4)
+        close("dbtp", rtol=1e-6)
+    elif fam == "spectr30stereo":
+        close("bands", atol=5e-3)
+        close("peaks", atol=5e-3)
+    elif fam == "dBTP":
+        close("level", rtol=TPK_RTOL)
+        close("peak", rtol=TPK_RTOL)
+    elif fam == "DR14":
+        exact("block_count")
+        close("m_peak", atol=tp_db)
+        close("v_peak", atol=tp_db)
+        for k in ("dr", "dr_total", "m_rms", "v_rms"):
+            close(k, atol=2e-3)
+    elif fam == "TPnRMS":
+        close("m_peak", atol=tp_db)
+        close("v_peak", atol=tp_db)
+        close("v_rms", rtol=2e-5)
+        close("m_rms", rtol=2e-5)
+    elif fam.startswith("sigdist"):
+        exact("hist", "hist_max", "hist_peak_bin", "integration_time")
+        close("hist_avg", rtol=2e-5, atol=1e-4 + 2 * math.log2(SHARD_S * FS) * 2.0 ** -24
+              * torch.as_tensor(abs_sum)[torch.isfinite(want["hist_avg"])])
+        close("mean", rtol=2e-4, atol=1e-7)
+        close("variance", rtol=2e-4)
+    elif fam == "bitmeter":
+        exact(*want)
+    elif fam == "VU":
+        close("value", rtol=2e-5, atol=1e-7)
+    elif fam in ("DIN", "BBC"):
+        exact("value")
+    elif fam == "BBCM6":
+        exact("mid", "side")
+    elif fam == "K20":
+        exact("peak")
+        close("rms", rtol=2e-5, atol=1e-7)
+    elif fam == "COR":
+        close("value", rtol=1e-4, atol=1e-5)
+    else:  # surround5 / surround8
+        exact("peak")
+        close("level", rtol=2e-5, atol=1e-7)
+        close("correlation", rtol=1e-4, atol=1e-5)
+    if not fam.startswith("R128") and set(got) != set(want):  # R128's whole-file dict has its own keys
+        errs.append(f"{fam}: keys {sorted(set(got) ^ set(want))} differ")
+    return worst, errs
+
+
+def sharded_phase(dev, gpu):
+    """Phase sharded.  Returns the launches of rows 1, 2e and 7 over every
+    rank and both layouts, by kernel name."""
+    import tempfile
+
+    import torch
+
+    import meters_lv2_torch
+    from meters_lv2_torch.parallel import launch
+    from meters_lv2_torch.parallel.mesh import choose_backend
+
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    backend = choose_backend("cuda", SHARD_RANKS, ncards)
+    if ncards == 1 and backend != "gloo":
+        fail(f"sharded: {SHARD_RANKS} ranks on one card must run gloo, the rule gave {backend}")
+
+    # the serial references, on the card, before the ranks start
+    B, S = SHARD_R128
+    serial, serial_s = {}, {}
+    x = shard_signal(range(B), 2, 0, S, SHARD_SEED)
+    xt = torch.from_numpy(x).to(dev)
+    del x
+    m = meters_lv2_torch.create("EBUr128", FS, nchan=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = m.update(m.init((B,)), xt)
+    out = m.read(st)[0]
+    torch.cuda.synchronize()
+    serial_s["R128"] = time.perf_counter() - t0
+    serial_mem = torch.cuda.max_memory_allocated() - base + xt.numel() * 4
+    out.update(hist_m=st.hist_m, hist_s=st.hist_s, count_m=st.count_m, count_s=st.count_s)
+    serial["R128"] = {k: v.cpu() for k, v in out.items()}
+    del xt, st, out
+    torch.cuda.empty_cache()
+    B, S = SHARD_R128_44K
+    xt = torch.from_numpy(shard_signal(range(B), 2, 0, S, SHARD_SEED, FS_44K)).to(dev)
+    m = meters_lv2_torch.create("EBUr128", FS_44K, nchan=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = m.update(m.init((B,)), xt)
+    out = m.read(st)[0]
+    torch.cuda.synchronize()
+    serial_s["R128_44k"] = time.perf_counter() - t0
+    out.update(hist_m=st.hist_m, hist_s=st.hist_s, count_m=st.count_m, count_s=st.count_s)
+    serial["R128_44k"] = {k: v.cpu() for k, v in out.items()}
+    del xt, st, out
+    whole = {kind: shard_inputs(kind, range(SHARD_B), 0, SHARD_S)
+             for kind in ("mono", "stereo", "sur5", "sur8")}
+    whole["spec"] = np.ascontiguousarray(whole["stereo"][..., :SHARD_SPEC_S * FS])
+    for fam, (_, _, _, _, kind) in SHARD_FAMILIES.items():
+        serial[fam], serial_s[fam] = shard_serial(fam, dev, whole[kind])
+    abs_sum = np.abs(whole["mono"]).sum(-1, dtype=np.float64)
+    del whole
+    torch.cuda.empty_cache()
+    t_serial = time.perf_counter() - t_phase
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        t0 = time.perf_counter()
+        ranks = launch(sharded_rank, SHARD_RANKS, ckpt, device="cuda")
+        t_ranks = time.perf_counter() - t0
+    print(f"phase sharded: {SHARD_RANKS} ranks, backend {ranks[0]['backend']} (host-staged "
+          f"collectives: {ranks[0]['staged']}), {ncards} card(s), rank devices "
+          f"{[r['device'] for r in ranks]}; the ranks {t_ranks:.1f} s with their start-up, the "
+          f"serial references {t_serial:.1f} s [{gpu}]")
+
+    failures = []
+    if any(r["backend"] != backend for r in ranks):
+        failures.append(f"a rank ran {[r['backend'] for r in ranks]}, the rule gave {backend}")
+    # launches: every rank, every analysis, exactly as predicted
+    totals = dict.fromkeys(SHARD_KERNELS, 0)
+    for r in ranks:
+        for (fam, dp, sp), got in r["launches"].items():
+            want = shard_predicted(fam, sp)
+            if got != want:
+                failures.append(f"rank {r['rank']} {fam} dp={dp} sp={sp}: launches "
+                                f"{ {k: v for k, v in got.items() if v} }, predicted "
+                                f"{ {k: v for k, v in want.items() if v} }")
+            for k, v in got.items():
+                totals[k] += v
+    # the kernels against their plain versions
+    checks = [r["checks"] for r in ranks if r["checks"] is not None]
+    if len(checks) != 1:
+        failures.append(f"{len(checks)} ranks ran the kernel checks")
+    check_err = {}
+    for text, worst, errs in checks:
+        print("phase sharded: kernels against their plain versions on a rank with a non-zero "
+              "entry state:\n" + text.rstrip())
+        failures += errs
+        for k, v in worst.items():
+            check_err[k] = max(check_err.get(k, 0.0), v)
+    # each result against the serial update
+    worst = {}
+    out = ranks[0]["out"]
+    for (fam, dp, sp), got in out.items():
+        w, errs = shard_compare(fam, got, serial[fam], abs_sum)
+        worst[fam] = max(worst.get(fam, 0.0), w)
+        failures += [f"dp={dp} sp={sp}: {e}" for e in errs]
+    for fam, (B, S) in (("R128", SHARD_R128), ("R128_44k", SHARD_R128_44K)):
+        for dp, sp in SHARD_LAYOUTS:
+            cm = out[fam, dp, sp]
+            if tuple(cm["curve_M"].shape) != (B, S * 20):  # 20 fragments a second
+                failures.append(f"{fam} curve_M shape {tuple(cm['curve_M'].shape)}")
+            d = (cm["curve_M"][:, -1] - serial[fam]["loudness_M"]).abs().max().item()
+            if d > 1e-4:
+                failures.append(f"dp={dp} sp={sp}: {fam} curve_M's last point off loudness_M "
+                                f"by {d:.3g}")
+    if any(0 in r["remainder"].values() for r in ranks):
+        failures.append("a 44.1 kHz shard was 128-aligned: the remainder branch did not run")
+    # the sharded checkpoint
+    for r in ranks:
+        c = r["ckpt"]
+        if c["files"] != ["manifest.json"] + [f"rank{i}.npz" for i in range(SHARD_RANKS)]:
+            failures.append(f"checkpoint files {c['files']}")
+        if not (c["on_card"] and c["same"]):
+            failures.append(f"rank {r['rank']}: checkpoint on the card {c['on_card']}, resumed "
+                            f"equal {c['same']}")
+    for fam in ["R128", "R128_44k", *SHARD_FAMILIES]:
+        secs = {"R128": SHARD_R128, "R128_44k": SHARD_R128_44K}.get(fam, (
+            SHARD_B, SHARD_SPEC_S if fam == "spectr30stereo" else SHARD_S))
+        ss = secs[0] * secs[1]
+        line = [f"serial {serial_s[fam]:.3f} s = {ss / serial_s[fam]:.1f} x-realtime"]
+        for dp, sp in SHARD_LAYOUTS:
+            t = max(r["times"][fam, dp, sp] for r in ranks)
+            line.append(f"dp={dp} x sp={sp} {t:.3f} s = {ss / t:.1f} x-realtime")
+        first = max(r["first"][fam, *SHARD_LAYOUTS[0]] for r in ranks)
+        print(f"phase times: sharded {fam} ({secs[0]} x {secs[1]} s), the slowest rank: "
+              + ", ".join(line) + f"; the first use {first:.3f} s (4 ranks time-slice one "
+              f"card: no speed-up is expected) [{gpu}]")
+    print("phase sharded: peak device memory a rank through its R128 analysis: " + ", ".join(
+        f"dp={dp} x sp={sp} {max(r['mem'][dp, sp] for r in ranks) / 2 ** 30:.2f} GiB"
+        for dp, sp in SHARD_LAYOUTS) + f"; the serial update {serial_mem / 2 ** 30:.2f} GiB "
+        f"[{gpu}]")
+    if failures:
+        fail("sharded: " + " | ".join(failures[:12]))
+
+    print(f"phase sharded: ok: R128 at B={SHARD_R128[0]} x {SHARD_R128[1]} s stereo, at "
+          f"{FS_44K} Hz B={SHARD_R128_44K[0]} x {SHARD_R128_44K[1]} s (every shard's last "
+          f"{sorted({v for r in ranks for v in r['remainder'].values()})} samples past the "
+          f"kernel's 128-aligned bulk through the plain ops), and "
+          f"{len(SHARD_FAMILIES)} other families at B={SHARD_B} x {SHARD_S} s (the spectrum "
+          f"{SHARD_SPEC_S} s) under dp x sp = "
+          + ", ".join(f"{dp} x {sp}" for dp, sp in SHARD_LAYOUTS)
+          + " against the serial update on the card (worst share of a bar: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"); every rank's launches as predicted (totals: "
+          + ", ".join(f"{k} {v}" for k, v in totals.items() if v)
+          + "); the dp = 4 checkpoint: one file a rank, on the card, resumed bit for bit")
+    print(f"phase sharded: the phase {time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    return totals, check_err
+
+
 def main():
     try:
         import torch
@@ -3534,15 +4136,6 @@ def main():
           f"{out['lra'][0].item():.4f} LU, dbtp[0] {out['dbtp'][0].item():.6f}; streams 0-3 "
           f"vs CPU: worst readout diff {worst:.3g} dB, dbtp {tp_db:.3g} dB, histograms exact")
 
-    def reset_counts():
-        r128_fused.launch_count = r128_fused.seg_launch_count = 0
-        ballistics_core.launch_count = ballistics_core.envelope_launch_count = 0
-        truepeak_fused.launch_count = truepeak_fused.serial_launch_count = 0
-        bitmeter_stats.launch_count = 0
-        spectrum_fused.launch_count = 0
-        surround_fused.launch_count = surround_fused.wide_launch_count = 0
-        stft_fused.launch_count = 0
-
     def all_counts():
         return (r128_fused.launch_count, ballistics_core.launch_count,
                 truepeak_fused.launch_count, bitmeter_stats.launch_count,
@@ -3768,17 +4361,6 @@ def main():
     marks.append(("golden variants", time.perf_counter()))
 
     # -- 6. ingest ----------------------------------------------------------
-    def launch_counts():
-        return {"r128_fused": r128_fused.launch_count, "ballistics": ballistics_core.launch_count,
-                "truepeak_fused": truepeak_fused.launch_count,
-                "bitmeter_stats": bitmeter_stats.launch_count,
-                "spectrum_fused": spectrum_fused.launch_count,
-                "surround_fused": surround_fused.launch_count,
-                "stft_fused": stft_fused.launch_count,
-                "ballistics_envelope": ballistics_core.envelope_launch_count,
-                "r128_fused_seg": r128_fused.seg_launch_count,
-                "surround_fused_wide": surround_fused.wide_launch_count}
-
     ingest_launches = ingest_phase(dev, gpu, reset_counts, launch_counts)
     marks.append(("ingest", time.perf_counter()))
 
@@ -3786,7 +4368,11 @@ def main():
     live_launches = live_phase(dev, gpu, reset_counts, launch_counts, live_jobs)
     marks.append(("live", time.perf_counter()))
 
-    # -- 8. times -----------------------------------------------------------
+    # -- 8. sharded ---------------------------------------------------------
+    sharded_launches, sharded_err = sharded_phase(dev, gpu)
+    marks.append(("sharded", time.perf_counter()))
+
+    # -- 9. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
     xd, zd, hd = on_card(x, z0, h0)
     xf = xd.reshape(B_MAIN, -1)
@@ -3984,6 +4570,9 @@ def main():
         "launches": launches,
         "ingest_launches": ingest_launches["r128_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["r128_fused"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["r128_fused"],  # phase sharded, every rank
+        # vs its plain version on a rank with a non-zero entry state
+        "sharded_max_abs_err": sharded_err["r128_fused"],
         "max_abs_err": main_err,  # p at the main-path shape, vs plain version
         "ms": ms_kernel,
         "plain_ms": ms_plain,
@@ -3998,6 +4587,7 @@ def main():
         "launches": ball_launches,  # dBTP's tails
         "ingest_launches": ingest_launches["ballistics"],  # phase ingest's pipeline runs
         "live_launches": live_launches["ballistics"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["ballistics"],  # phase sharded, every rank
         "max_abs_err": ball_err,  # all outputs at the main-path shape
         "ms": times["ballistics"][0],  # alternated with the envelope body
         "plain_ms": times["ballistics"][1],
@@ -4012,6 +4602,7 @@ def main():
         "launches": tp_launches,
         "ingest_launches": ingest_launches["truepeak_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["truepeak_fused"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["truepeak_fused"],  # phase sharded, every rank
         "max_abs_err": tp_err,  # z1, z2, m, p at the main-path shape
         "ms": times["truepeak_fused"][0],  # the default (envelope) body
         "plain_ms": times["truepeak_fused"][1],  # its plain version, one call
@@ -4029,6 +4620,9 @@ def main():
         "launches": bit_launches,
         "ingest_launches": ingest_launches["bitmeter_stats"],  # phase ingest's pipeline runs
         "live_launches": live_launches["bitmeter_stats"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["bitmeter_stats"],  # phase sharded, every rank
+        # vs its plain version on a rank with a non-zero entry state
+        "sharded_max_abs_err": sharded_err["bitmeter_stats"],
         "max_abs_err": bit_err,  # every field at the main-path shape
         "ms": times["bitmeter_stats"][0],
         "plain_ms": times["bitmeter_stats"][1],
@@ -4045,6 +4639,7 @@ def main():
         "launches": spec_main + spec_tail,
         "ingest_launches": ingest_launches["spectrum_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["spectrum_fused"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["spectrum_fused"],  # phase sharded, every rank
         "max_abs_err": spec_err,  # val, peak and zf at the main-path shape
         "ms": times["spectrum_fused"][0],
         "plain_ms": times["spectrum_fused"][1],
@@ -4059,6 +4654,7 @@ def main():
         "launches": sur_launches,
         "ingest_launches": ingest_launches["surround_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["surround_fused"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["surround_fused"],  # phase sharded, every rank
         "max_abs_err": sur_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000
         "ms": times["surround_fused"][0],  # C=8; C=5 is printed in phase times
         "plain_ms": times["surround_fused"][1],
@@ -4073,6 +4669,7 @@ def main():
         "launches": stft_launches,
         "ingest_launches": ingest_launches["stft_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["stft_fused"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["stft_fused"],  # phase sharded, every rank
         "max_abs_err": stft_err,  # raw re/im at the main-path shape, vs plain version
         "ms": times["stft_fused"][0],  # phasewheel mode, the main path's
         "plain_ms": times["stft_fused"][1],
@@ -4089,6 +4686,9 @@ def main():
         "launches": env_launches,  # BBCstereo, DINstereo and BBCM6 on the default path
         "ingest_launches": ingest_launches["ballistics_envelope"],  # phase ingest's pipeline runs
         "live_launches": live_launches["ballistics_envelope"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["ballistics_envelope"],  # phase sharded, every rank
+        # vs its plain version on a rank with a non-zero entry state
+        "sharded_max_abs_err": sharded_err["ballistics_envelope"],
         "max_abs_err": env_err,  # at N=512 vs plain version (bit-exact); vs serial in phase kernels
         "ms": times["ballistics_envelope"][0],  # alternated with the serial body
         "plain_ms": times["ballistics_envelope"][1],
@@ -4105,6 +4705,7 @@ def main():
         "launches": seg_launches,  # the 12 main-path blocks through fused_core(off=...)
         "ingest_launches": ingest_launches["r128_fused_seg"],  # phase ingest's pipeline runs
         "live_launches": live_launches["r128_fused_seg"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["r128_fused_seg"],  # phase sharded, every rank
         "max_abs_err": seg_err,  # seg at the main-path shape, vs plain version
         "ms": var_times["seg"][0],
         "plain_ms": var_times["seg"][1],
@@ -4119,6 +4720,7 @@ def main():
         "launches": wide_launches,  # surround5 and surround8 with METERS_TORCH_SURROUND_WIDE=1
         "ingest_launches": ingest_launches["surround_fused_wide"],  # phase ingest's pipeline runs
         "live_launches": live_launches["surround_fused_wide"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["surround_fused_wide"],  # phase sharded, every rank
         "max_abs_err": wide_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000, vs plain
         "ms": var_times["wide C=8"][0],  # C=5 is printed in phase times
         "plain_ms": var_times["wide C=8"][1],

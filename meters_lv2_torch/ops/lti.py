@@ -126,6 +126,8 @@ class LTIBlockOp:
       g:     [T*m, d]    input->state map (A^{T-1-j} B columns)
       block: samples (input steps) per block
       d, m, p: state/input/output dims
+      at64:  A^T_block in float64, the source of ``at_powers`` (None where
+             the operator was built elsewhere)
     """
 
     kmat: np.ndarray
@@ -136,9 +138,11 @@ class LTIBlockOp:
     d: int
     m: int
     p: int
+    at64: np.ndarray | None = dataclasses.field(default=None, repr=False, compare=False)
     _on_device: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False
     )
+    _powers: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def tensors(self, device) -> BlockOpTensors:
         """The leaves as float32 tensors on ``device`` (cached per device)."""
@@ -146,6 +150,22 @@ class LTIBlockOp:
         if device not in self._on_device:
             self._on_device[device] = block_op_tensors(self, device)
         return self._on_device[device]
+
+    def at_powers(self, levels: int, device) -> list[torch.Tensor]:
+        """[(A^T_block)^(2^l) for l < levels] as float32 tensors on
+        ``device``: squared in float64 on the host and rounded once, cached
+        per device."""
+        if self.at64 is None:
+            raise ValueError("this block operator carries no float64 A^T_block")
+        device = canonical_device(device)
+        have = self._powers.get(device, [])
+        if len(have) < levels:
+            p64 = [self.at64]
+            while len(p64) < levels:
+                p64.append(p64[-1] @ p64[-1])  # a stacked [NB, d, d] squares by bank
+            have = [torch.as_tensor(p.astype(np.float32), device=device) for p in p64]
+            self._powers[device] = have
+        return have[:levels]
 
 
 def block_op_tensors(op, device="cuda") -> BlockOpTensors:
@@ -217,6 +237,7 @@ def build_lti_block_op(
         d=d,
         m=m,
         p=p,
+        at64=apow[T].T.copy(),
     )
 
 
@@ -323,6 +344,47 @@ def _scan_split(op_of, u: torch.Tensor, s: torch.Tensor, prefer_block: int):
     return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=-2)), s
 
 
+def lti_scan_exit(op: LTIBlockOp, u: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
+    """The final state of ``lti_scan(op, u, s0)`` without the outputs.
+
+    The blocks' input terms gin[k] = u[k] @ G come from one product, as in
+    ``lti_scan``; s0 P^n + sum_k gin[k] P^(n-1-k), P = A^T_block, then comes
+    from a pairwise tree of ceil(log2(n + 1)) levels, each with its power
+    of P (``LTIBlockOp.at_powers``), where ``lti_scan`` walks the n blocks
+    one launch after another (112,500 of them for 14.4 M samples at 128).
+    The sums run in another order than the loop's, so the state differs
+    from ``lti_scan``'s by float32 rounding.  Arguments as ``lti_scan``;
+    returns s_final [..., d]."""
+    if u.ndim == s0.ndim:  # missing input-channel dim
+        u = u[..., None]
+    *batch, T_total, m = u.shape
+    assert m == op.m, (m, op.m)
+    assert T_total % op.block == 0, (T_total, op.block)
+    nblk = T_total // op.block
+    w = op.tensors(u.device)
+    with ieee_fp32():
+        gin = torch.matmul(u.reshape(*batch, nblk, op.block * op.m), w.g)  # [..., nblk, d]
+        s = torch.broadcast_to(s0, gin.shape[:-2] + (op.d,))
+        g = torch.cat([s.unsqueeze(-2), gin], dim=-2)  # term j takes P^(nblk - j)
+        for pw in op.at_powers(nblk.bit_length(), u.device):
+            if g.shape[-2] % 2:  # a zero term in front changes no sum
+                g = torch.cat([torch.zeros_like(g[..., :1, :]), g], dim=-2)
+            # a banked pw [NB, d, d] batches with g's bank axis [..., NB, k, d]
+            g = torch.matmul(g[..., 0::2, :], pw) + g[..., 1::2, :]
+    return g[..., 0, :]
+
+
+def _exit_split(op_of, u: torch.Tensor, s: torch.Tensor, prefer_block: int) -> torch.Tensor:
+    """``_scan_split``'s final state by ``lti_scan_exit``."""
+    T = u.shape[-2]
+    main = (T // prefer_block) * prefer_block
+    if main:
+        s = lti_scan_exit(op_of(prefer_block), u[..., :main, :], s)
+    if T - main:
+        s = lti_scan_exit(op_of(T - main), u[..., main:, :], s)
+    return s
+
+
 class LTISystem:
     """An (A, B, C, D) system plus a cache of block operators.
 
@@ -365,6 +427,15 @@ class LTISystem:
             y = y[..., 0]
         return y, s
 
+    def exit_state(
+        self, u: torch.Tensor, s0: torch.Tensor, prefer_block: int = 128
+    ) -> torch.Tensor:
+        """``apply(u, s0, prefer_block)[1]`` without the outputs
+        (``lti_scan_exit``)."""
+        if u.ndim == s0.ndim:
+            u = u[..., None]
+        return _exit_split(self.op, u, s0, prefer_block)
+
 
 class BankedLTISystem:
     """A bank of NB independent same-dimension LTI systems (e.g. the 30
@@ -392,6 +463,7 @@ class BankedLTISystem:
             self._ops[block] = LTIBlockOp(
                 *(np.stack([getattr(o, k) for o in ops]) for k in BlockOpTensors._fields),
                 block=block, d=self.d, m=self.m, p=self.p,
+                at64=np.stack([o.at64 for o in ops]),
             )
         return self._ops[block]
 
@@ -405,9 +477,19 @@ class BankedLTISystem:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """u: [..., T] (shared across banks); s0: [..., NB, d].
         Returns (y [..., NB, T], s [..., NB, d])."""
-        ub = u.unsqueeze(-2).expand(*u.shape[:-1], self.nb, u.shape[-1])
-        y, s = _scan_split(self.op, ub.unsqueeze(-1), s0, prefer_block)
+        y, s = _scan_split(self.op, self._banked(u), s0, prefer_block)
         return y[..., 0], s
+
+    def exit_state(
+        self, u: torch.Tensor, s0: torch.Tensor, prefer_block: int = 128
+    ) -> torch.Tensor:
+        """``apply(u, s0, prefer_block)[1]`` without the outputs
+        (``lti_scan_exit``)."""
+        return _exit_split(self.op, self._banked(u), s0, prefer_block)
+
+    def _banked(self, u: torch.Tensor) -> torch.Tensor:
+        """u [..., T] shared by the banks as [..., NB, T, 1]."""
+        return u.unsqueeze(-2).expand(*u.shape[:-1], self.nb, u.shape[-1]).unsqueeze(-1)
 
 
 def one_pole_block_op_traced(omega: torch.Tensor, block: int) -> TensorBlockOp:

@@ -13,6 +13,9 @@ nested), so a full measurement checkpoint is a tree serialisation:
 - pack_settings / unpack_settings: the reference's bit-packed config word
 - save_state / load_state: full measurement checkpoint (npz), enabling
   resume of long-running jobs mid-stream
+- save_state_sharded / load_state_sharded: the same for a state split over
+  a ('dp', 'sp') mesh of ranks (parallel.mesh): each rank writes and reads
+  only its own block, in the save_state layout, beside a manifest
 
 The npz layout is the JAX package's: the leaves in its order (dataclass
 fields in order, dict keys sorted) as ``leaf_{i}``, plus a
@@ -30,6 +33,7 @@ applies to the reference's LV2 State across plugin versions).
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -120,3 +124,55 @@ def load_state(like_state, path_or_file):
                 )
             arrays.append(arr)
     return tree_unflatten(treedef, [_restore(a, like) for a, like in zip(arrays, leaves)])
+
+
+_MANIFEST = "manifest.json"
+
+
+def _rank_file(rank: int) -> str:
+    return f"rank{rank}.npz"
+
+
+def save_state_sharded(state, path, mesh) -> None:
+    """Checkpoint this rank's block of a mesh-sharded meter state; called
+    by every rank of ``mesh`` (parallel.mesh.Mesh).
+
+    Each rank writes only its own block to ``path/rank{r}.npz`` in the
+    ``save_state`` layout, and rank 0 the manifest ``path/manifest.json``
+    (dp, sp, world size, each rank's mesh position and file): no rank
+    touches another rank's file, nothing is gathered to one host.  Returns
+    when every rank has written (a barrier)."""
+    os.makedirs(path, exist_ok=True)
+    save_state(state, os.path.join(path, _rank_file(mesh.rank)))
+    if mesh.rank == 0:
+        dp, sp = mesh.shape
+        manifest = {
+            "dp": dp, "sp": sp, "world_size": mesh.world_size,
+            "blocks": [{"rank": r, "dp_index": r // sp, "sp_index": r % sp,
+                        "file": _rank_file(r)} for r in range(mesh.world_size)],
+        }
+        tmp = os.path.join(path, _MANIFEST + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(path, _MANIFEST))
+    mesh.barrier()
+
+
+def load_state_sharded(like_state, path, mesh):
+    """Restore this rank's block of a ``save_state_sharded`` checkpoint;
+    called by every rank.  The manifest must name this mesh's layout (dp,
+    sp, world size and this rank's position), else ValueError; the block
+    is checked leaf by leaf against ``like_state`` as ``load_state``
+    checks, and each tensor lands on its like leaf's device."""
+    with open(os.path.join(path, _MANIFEST)) as f:
+        manifest = json.load(f)
+    dp, sp = mesh.shape
+    saved = (manifest["dp"], manifest["sp"], manifest["world_size"])
+    if saved != (dp, sp, mesh.world_size):
+        raise ValueError(
+            f"checkpoint saved under dp={saved[0]} x sp={saved[1]} ({saved[2]} ranks), this "
+            f"mesh is dp={dp} x sp={sp} ({mesh.world_size} ranks)")
+    block = manifest["blocks"][mesh.rank]
+    if (block["rank"], block["dp_index"], block["sp_index"]) != (mesh.rank, *divmod(mesh.rank, sp)):
+        raise ValueError(f"manifest block {block} does not belong to rank {mesh.rank}")
+    return load_state(like_state, os.path.join(path, block["file"]))

@@ -1223,3 +1223,96 @@ def test_live_state_stays_on_card_after_reset_and_load(cuda, tmp_path):
             np.testing.assert_array_equal(v, w, err_msg=f"{n}.{k}")
     eng.feed(x)
     assert on_card() and eng.frame("r128")[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+# -- the sharded whole-file analyses on the card ------------------------------
+# Bars as tests/test_torch_sharded.py: R128 histograms and counts exact, max
+# M/S 1e-5, integrated and LRA 1e-4, dbtp 1e-6 relative; dBTP at the
+# truepeak_fused bar above (the serial update runs that kernel's FIR, the
+# sharded path resample.upsample4), 1e-5 relative.
+
+
+def _launch_counts():
+    return {"r128": r128_fused.launch_count, "serial": ballistics_core.launch_count,
+            "envelope": ballistics_core.envelope_launch_count,
+            "truepeak": truepeak_fused.launch_count}
+
+
+def _sharded_rank(rank, x_r128, x_tp, fs):
+    """dp = 1 x sp = 2 on the card: analyze_r128 at ``fs`` and
+    analyze_truepeak, each rank's launches of each."""
+    from meters_lv2_torch.parallel import (
+        gather_outputs, make_mesh, meters_sharded, r128_sharded, shard_time)
+
+    mesh = make_mesh(1, 2)
+    m = meters_lv2_torch.create("EBUr128", fs, nchan=2)
+    res = {"device": str(mesh.device), "backend": mesh.backend, "staged": mesh.staged}
+    c0 = _launch_counts()
+    out = r128_sharded.analyze_r128(m, shard_time(mesh, torch.from_numpy(x_r128)), mesh)
+    c1 = _launch_counts()
+    res["r128"] = {k: v.cpu() for k, v in
+                   gather_outputs(out, mesh, r128_sharded.OUT_SPECS).items()}
+    tp = meters_sharded.analyze_truepeak(meters_lv2_torch.create("dBTPmono", 48000),
+                                         shard_time(mesh, torch.from_numpy(x_tp)), mesh)
+    c2 = _launch_counts()
+    res["tp"] = {k: v.cpu() for k, v in gather_outputs(tp, mesh).items()}
+    res["launches"] = ({k: c1[k] - c0[k] for k in c0}, {k: c2[k] - c1[k] for k in c0})
+    return res
+
+
+@pytest.mark.parametrize("fs", [48000, 44100])
+def test_sharded_r128_and_truepeak_on_card_match_serial(cuda, fs):
+    """A 2-rank world on the card (gloo with host-staged collectives when the
+    ranks share a card, NCCL when each has one): the sharded R128 and dBTP
+    against one serial update on the card, and each rank's launches: one
+    r128_fused, and 2 (sp) envelope ballistics calls for dBTP's chain.  At
+    44.1 kHz a 6 s shard is 264,600 samples, 24 past its 128-aligned bulk:
+    the remainder runs the meter's plain ops from the kernel's exit state."""
+    from meters_lv2_torch.parallel import launch
+
+    rng = np.random.default_rng(19)
+    x_r128 = (0.2 * rng.standard_normal((2, 2, 12 * fs))).astype(np.float32)
+    x_r128[:, :, 4 * fs:5 * fs] *= 0.05
+    x_tp = (0.25 * rng.standard_normal((4, 48000))).astype(np.float32)
+    ranks = launch(_sharded_rank, 2, x_r128, x_tp, fs, device="cuda")
+    want_backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    for r in ranks:
+        assert r["backend"] == want_backend and r["staged"] == (want_backend == "gloo")
+        assert r["launches"] == ({"r128": 1, "serial": 0, "envelope": 0, "truepeak": 0},
+                                 {"r128": 0, "serial": 0, "envelope": 2, "truepeak": 0}), r
+    m = meters_lv2_torch.create("EBUr128", fs, nchan=2)
+    st = m.update(m.init((2,)), torch.from_numpy(x_r128).to(cuda))
+    ref = m.read(st)[0]
+    got = ranks[0]["r128"]
+    for k, v in (("hist_m", st.hist_m), ("hist_s", st.hist_s), ("count_m", st.count_m),
+                 ("count_s", st.count_s), ("radar_pos", ref["radar_pos"])):
+        assert torch.equal(got[k], v.cpu()), k
+    for k, tol in (("max_M", 1e-5), ("max_S", 1e-5), ("integrated", 1e-4), ("lra", 1e-4),
+                   ("loudness_M", 1e-4)):
+        assert (got[k] - ref[k].cpu()).abs().max().item() <= tol, k
+    assert ((got["dbtp"] - ref["dbtp"].cpu()).abs() <= 1e-6 * ref["dbtp"].cpu()).all()
+    assert (got["curve_M"][:, -1] - ref["loudness_M"].cpu()).abs().max().item() <= 1e-4
+    tm = meters_lv2_torch.create("dBTPmono", 48000)
+    tref = tm.read(tm.update(tm.init((4,)), torch.from_numpy(x_tp).to(cuda)))[0]
+    for k in ("level", "peak"):
+        assert ((ranks[0]["tp"][k] - tref[k].cpu()).abs() <= 1e-5 * tref[k].cpu()).all(), k
+
+
+def _nccl_mesh_rank(rank):
+    from meters_lv2_torch.parallel import make_mesh
+
+    try:
+        make_mesh(1, torch.distributed.get_world_size(), backend="nccl")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def test_nccl_on_a_shared_card_raises(cuda):
+    """More ranks than cards: the world runs gloo, and make_mesh(backend=
+    "nccl") raises on every rank; nothing falls back."""
+    from meters_lv2_torch.parallel import launch
+
+    world = torch.cuda.device_count() + 1
+    msgs = launch(_nccl_mesh_rank, world, device="cuda")
+    assert all(m and "NCCL cannot put" in m for m in msgs), msgs

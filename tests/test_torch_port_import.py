@@ -112,6 +112,31 @@ def test_live_shell_and_host_utils_import_no_jax():
     assert r.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_sharded_analyses_import_no_jax():
+    """The mesh, the sequence-parallel handoff, the sharded analyses and the
+    sharded checkpoints import neither jax nor meters_lv2_tpu."""
+    code = (
+        "import sys\n"
+        "import meters_lv2_torch.parallel.mesh, meters_lv2_torch.parallel.timepar\n"
+        "import meters_lv2_torch.parallel.r128_sharded\n"
+        "import meters_lv2_torch.parallel.spectrum_sharded\n"
+        "import meters_lv2_torch.parallel.meters_sharded\n"
+        "from meters_lv2_torch.parallel import launch, make_mesh, shard_batch, shard_time\n"
+        "from meters_lv2_torch.utils.state import load_state_sharded, save_state_sharded\n"
+        "from meters_lv2_torch.parallel.mesh import choose_backend\n"
+        "assert choose_backend('cpu', 4, 0) == 'gloo'\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_registry_names_every_jax_meter():
     """Every meter of the JAX package is available in the port: none is
     left in NOT_YET_PORTED."""
