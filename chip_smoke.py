@@ -146,7 +146,18 @@ Phases, each printed on its own line; any failure exits non-zero:
               with save_state_sharded, loaded on the card and carried one
               more second bit for bit; the wall time of each analysis per
               layout and of the serial update as x-realtime;
-  9. times    each kernel vs its plain version, truepeak_fused's envelope
+  9. tools    the native leg of tools/gpu_parity_check.py on the card (a
+              subprocess): R128 at B=256 x 10 s stereo in flat 1 s blocks
+              and at 44.1 and 96 kHz (B=8), every other kind of the native
+              engine at B=32 x 10 s in 1000-sample blocks (the analyzers a
+              hop a call; surround at C=5 and 8), each against one
+              runtime.native.NativeEngine a stream on the host at the bars
+              of tests/test_native.py, every worst share of a bar <= 1 and
+              every kernel's launches equal to the counts predicted from B,
+              T and the block; beside it the three examples
+              (examples/torch_*.py) on the card, their lines checked as
+              tests/test_torch_examples.py checks them on the CPU;
+ 10. times    each kernel vs its plain version, truepeak_fused's envelope
               and serial bodies alternated at N=512 and N=8,192, the
               ballistics kernel's envelope and serial bodies alternated at
               N=512 and at 4,224 to 33,792 rows, and main-path x-realtime
@@ -3867,6 +3878,136 @@ def sharded_phase(dev, gpu):
     return totals, check_err
 
 
+# -- phase tools: the parity sweep's native leg and the examples on the card --
+TOOLS_TIMEOUT = 600  # seconds each subprocess may take
+TOOLS_WORKERS = 4  # the sweep's engine processes, beside the examples' ranks
+TOOLS_ROWS = ("r128_fused", "ballistics", "ballistics_envelope", "truepeak_fused",
+              "spectrum_fused", "surround_fused", "bitmeter_stats", "stft_fused")
+
+
+def tools_predicted(case):
+    """The launches of one native-leg case of tools/gpu_parity_check.py on
+    the card: one update a block (live_update's rule: the 128-aligned bulk
+    through r128_fused, truepeak_fused, spectrum_fused and surround_fused, a
+    tail through the serial ballistics body for dBTP, DR-14 and TP+RMS, the
+    PPM needles and M-6 through the envelope body and the bit meter through
+    its kernel at every length), and stft_fused once a process call of the
+    phase wheel and the stereoscope."""
+    n = case.fs * case.seconds // case.block
+    if case.kind in ("phasewheel", "stereoscope"):
+        return {"stft_fused": n}
+    name = {"iec1": "din", "iec2": "bbc", "msppm": "bbcms"}.get(case.kind, case.kind)
+    return {k: int(v) * n for k, v in live_update([name])(case.block).items() if v}
+
+
+def tools_phase(gpu):
+    """Phase tools: the native leg of tools/gpu_parity_check.py at the card's
+    sizes (a subprocess), with the three examples on the card beside it.
+    Returns the sweep's launches by kernel name."""
+    import tempfile
+
+    from meters_lv2_torch.io.wav import write_wav
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import gpu_parity_check as gpc
+
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != WIDE_VAR}
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(7)
+        wavs = []
+        for i in range(2):  # 6 s: a gated I needs >= 5 s of M-points
+            wavs.append(os.path.join(tmp, f"ex{i}.wav"))
+            write_wav(wavs[-1], (0.2 * rng.standard_normal((2, 6 * FS))).astype(np.float32), FS)
+        cmds = {
+            "parity": ["tools/gpu_parity_check.py", "--legs", "native",
+                       "--workers", str(TOOLS_WORKERS)],
+            "batch_loudness": ["examples/torch_batch_loudness.py", *wavs],
+            "streaming_monitor": ["examples/torch_streaming_monitor.py"],
+            "sharded_analysis": ["examples/torch_sharded_analysis.py"],
+        }
+        logs = {k: open(os.path.join(tmp, f"{k}.log"), "w+") for k in cmds}
+        procs = {k: subprocess.Popen([sys.executable, *c], cwd=ROOT, env=env, text=True,
+                                     stdout=logs[k], stderr=subprocess.STDOUT)
+                 for k, c in cmds.items()}
+        secs = {}
+        try:
+            while len(secs) < len(procs):  # each one's own wall time
+                for k, pr in procs.items():
+                    if k not in secs and pr.poll() is not None:
+                        secs[k] = time.perf_counter() - t_phase
+                if time.perf_counter() - t_phase > TOOLS_TIMEOUT:
+                    fail(f"phase tools: {sorted(set(procs) - set(secs))} took over "
+                         f"{TOOLS_TIMEOUT} s")
+                time.sleep(0.1)
+        finally:
+            for pr in procs.values():
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        outs = {}
+        for k, f in logs.items():
+            f.seek(0)
+            outs[k] = f.read()
+            f.close()
+            if procs[k].returncode != 0:
+                fail(f"phase tools: {k} exited {procs[k].returncode}:\n{outs[k][-3000:]}")
+    lines = outs["parity"].strip().splitlines()
+    try:
+        res = json.loads(lines[-1])
+    except (ValueError, IndexError):
+        fail(f"phase tools: the sweep's last line is not JSON:\n{outs['parity'][-3000:]}")
+    table = gpc.native_cases(quick=False)
+    want_total = dict.fromkeys(TOOLS_ROWS, 0)
+    got_total = dict.fromkeys(TOOLS_ROWS, 0)
+    shares = []
+    for fam, cases in table.items():
+        for case in cases:
+            row = res["families"][fam]["native"]["cases"][case.name]
+            if not row["share"] <= 1 or row["streams"] != case.B:
+                fail(f"phase tools: {case.name}: {row['share']} of its bar over {row['streams']} "
+                     f"streams (want <= 1 over {case.B})")
+            got = row["launches"]  # every counted kernel; seg mode and the wide layout 0
+            want = {k: tools_predicted(case).get(k, 0) for k in got}
+            if got != want:
+                fail(f"phase tools: {case.name} launches {got}, predicted {want}")
+            for k in TOOLS_ROWS:
+                want_total[k] += want[k]
+                got_total[k] += got[k]
+            shares.append(f"{case.name} B={case.B} {case.seconds} s at {case.fs} Hz, "
+                          f"{case.block}-sample blocks: {row['share']:.4g} "
+                          f"(the port's side {row['seconds']:.1f} s, signals included)")
+    if not res["ok"]:
+        fail(f"phase tools: the sweep is not ok:\n{outs['parity'][-3000:]}")
+    missing = [k for k in TOOLS_ROWS if not got_total[k]]
+    if missing:
+        fail(f"phase tools: the sweep launched no {missing}")
+    print("phase tools: native leg of tools/gpu_parity_check.py against NativeEngine, worst share "
+          "of a bar: " + "; ".join(shares))
+    print("phase tools: launches as predicted from B, T and the block: "
+          + ", ".join(f"{k} {got_total[k]}" for k in TOOLS_ROWS) + f" [{gpu}]")
+
+    out = outs["batch_loudness"]
+    if out.count("ADJUST") + out.count("PASS") != 2 or "-200.00" in out or "on cuda" not in out:
+        fail(f"phase tools: torch_batch_loudness.py:\n{out[-2000:]}")
+    out = outs["streaming_monitor"]
+    if "final:" not in out or "radar -> 240" not in out or "(on cuda)" not in out:
+        fail(f"phase tools: torch_streaming_monitor.py:\n{out[-2000:]}")
+    out = outs["sharded_analysis"]
+    if ("stream 7:" not in out or "checkpointed + restored" not in out
+            or "4 ranks on cuda (gloo, host-staged)" not in out):
+        fail(f"phase tools: torch_sharded_analysis.py:\n{out[-2000:]}")
+    for k in ("batch_loudness", "streaming_monitor", "sharded_analysis"):
+        picked = [ln for ln in outs[k].splitlines()
+                  if any(w in ln for w in ("PASS", "ADJUST", "final:", "radar ->", "stream 7:",
+                                           "checkpointed", "mesh:"))]
+        print(f"phase tools: ok: examples/torch_{k}.py on the card ({secs[k]:.1f} s): "
+              + " | ".join(ln.strip() for ln in picked))
+    print(f"phase tools: ok: the sweep {secs['parity']:.1f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    return got_total
+
+
 def main():
     try:
         import torch
@@ -4372,7 +4513,11 @@ def main():
     sharded_launches, sharded_err = sharded_phase(dev, gpu)
     marks.append(("sharded", time.perf_counter()))
 
-    # -- 9. times -----------------------------------------------------------
+    # -- 9. tools -----------------------------------------------------------
+    tools_launches = tools_phase(gpu)
+    marks.append(("tools", time.perf_counter()))
+
+    # -- 10. times -----------------------------------------------------------
     x, z0, h0 = inputs(B_MAIN, 2, FS, 1.0)
     xd, zd, hd = on_card(x, z0, h0)
     xf = xd.reshape(B_MAIN, -1)
@@ -4571,6 +4716,7 @@ def main():
         "ingest_launches": ingest_launches["r128_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["r128_fused"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["r128_fused"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("r128_fused", 0),  # phase tools' sweep
         # vs its plain version on a rank with a non-zero entry state
         "sharded_max_abs_err": sharded_err["r128_fused"],
         "max_abs_err": main_err,  # p at the main-path shape, vs plain version
@@ -4588,6 +4734,7 @@ def main():
         "ingest_launches": ingest_launches["ballistics"],  # phase ingest's pipeline runs
         "live_launches": live_launches["ballistics"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["ballistics"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("ballistics", 0),  # phase tools' sweep
         "max_abs_err": ball_err,  # all outputs at the main-path shape
         "ms": times["ballistics"][0],  # alternated with the envelope body
         "plain_ms": times["ballistics"][1],
@@ -4603,6 +4750,7 @@ def main():
         "ingest_launches": ingest_launches["truepeak_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["truepeak_fused"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["truepeak_fused"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("truepeak_fused", 0),  # phase tools' sweep
         "max_abs_err": tp_err,  # z1, z2, m, p at the main-path shape
         "ms": times["truepeak_fused"][0],  # the default (envelope) body
         "plain_ms": times["truepeak_fused"][1],  # its plain version, one call
@@ -4621,6 +4769,7 @@ def main():
         "ingest_launches": ingest_launches["bitmeter_stats"],  # phase ingest's pipeline runs
         "live_launches": live_launches["bitmeter_stats"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["bitmeter_stats"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("bitmeter_stats", 0),  # phase tools' sweep
         # vs its plain version on a rank with a non-zero entry state
         "sharded_max_abs_err": sharded_err["bitmeter_stats"],
         "max_abs_err": bit_err,  # every field at the main-path shape
@@ -4640,6 +4789,7 @@ def main():
         "ingest_launches": ingest_launches["spectrum_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["spectrum_fused"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["spectrum_fused"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("spectrum_fused", 0),  # phase tools' sweep
         "max_abs_err": spec_err,  # val, peak and zf at the main-path shape
         "ms": times["spectrum_fused"][0],
         "plain_ms": times["spectrum_fused"][1],
@@ -4655,6 +4805,7 @@ def main():
         "ingest_launches": ingest_launches["surround_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["surround_fused"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["surround_fused"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("surround_fused", 0),  # phase tools' sweep
         "max_abs_err": sur_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000
         "ms": times["surround_fused"][0],  # C=8; C=5 is printed in phase times
         "plain_ms": times["surround_fused"][1],
@@ -4670,6 +4821,7 @@ def main():
         "ingest_launches": ingest_launches["stft_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["stft_fused"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["stft_fused"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("stft_fused", 0),  # phase tools' sweep
         "max_abs_err": stft_err,  # raw re/im at the main-path shape, vs plain version
         "ms": times["stft_fused"][0],  # phasewheel mode, the main path's
         "plain_ms": times["stft_fused"][1],
@@ -4687,6 +4839,7 @@ def main():
         "ingest_launches": ingest_launches["ballistics_envelope"],  # phase ingest's pipeline runs
         "live_launches": live_launches["ballistics_envelope"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["ballistics_envelope"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("ballistics_envelope", 0),  # phase tools' sweep
         # vs its plain version on a rank with a non-zero entry state
         "sharded_max_abs_err": sharded_err["ballistics_envelope"],
         "max_abs_err": env_err,  # at N=512 vs plain version (bit-exact); vs serial in phase kernels
@@ -4706,6 +4859,7 @@ def main():
         "ingest_launches": ingest_launches["r128_fused_seg"],  # phase ingest's pipeline runs
         "live_launches": live_launches["r128_fused_seg"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["r128_fused_seg"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("r128_fused_seg", 0),  # phase tools' sweep
         "max_abs_err": seg_err,  # seg at the main-path shape, vs plain version
         "ms": var_times["seg"][0],
         "plain_ms": var_times["seg"][1],
@@ -4721,6 +4875,7 @@ def main():
         "ingest_launches": ingest_launches["surround_fused_wide"],  # phase ingest's pipeline runs
         "live_launches": live_launches["surround_fused_wide"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["surround_fused_wide"],  # phase sharded, every rank
+        "tools_launches": tools_launches.get("surround_fused_wide", 0),  # phase tools' sweep
         "max_abs_err": wide_err,  # km_z, zl, pk and pacc at B=256 C=8 T=48000, vs plain
         "ms": var_times["wide C=8"][0],  # C=5 is printed in phase times
         "plain_ms": var_times["wide C=8"][1],

@@ -22,9 +22,11 @@ import dataclasses
 
 import torch
 
-from ..ops.bitmeter_stats import NMAN, NPOS, bitmeter_stats
+from ..ops import bitmeter_stats as _stats
+from ..ops.bitmeter_stats import NMAN, bitmeter_stats
 from .base import register
 
+NPOS = _stats.NPOS  # hit/one position range (matches reference region width)
 _CAP = 2147483647
 
 

@@ -172,6 +172,12 @@ def upsample_init(batch_shape=(), hl: int = _HL, device="cuda") -> torch.Tensor:
     return torch.zeros((*tuple(batch_shape), 2 * hl - 1), dtype=torch.float32, device=device)
 
 
+def upsample4_init(batch_shape=(), dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """The 4x true-peak upsampler's history: 2*24-1 = 47 zeros (equivalent
+    to the zero prefeed)."""
+    return torch.zeros((*tuple(batch_shape), 2 * _HL - 1), dtype=dtype, device=device)
+
+
 def upsample(x: torch.Tensor, hist: torch.Tensor, taps) -> tuple[torch.Tensor, torch.Tensor]:
     """Integer-factor polyphase upsampling (generalises upsample4).
 

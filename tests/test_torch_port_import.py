@@ -137,6 +137,42 @@ def test_sharded_analyses_import_no_jax():
     assert r.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_tools_and_examples_import_no_jax():
+    """The parity sweep, the release gate and the three examples import
+    neither jax nor meters_lv2_tpu, with every module they import lazily
+    (the golden functions, the engine binding, the sharded analyses)."""
+    code = (
+        "import importlib.util, sys\n"
+        "def load(path):\n"
+        "    spec = importlib.util.spec_from_file_location(path.split('/')[-1][:-3], path)\n"
+        "    mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    return mod\n"
+        "gpc = load('tools/gpu_parity_check.py')\n"
+        "load('tools/release_check_torch.py')\n"
+        "for name in ('batch_loudness', 'streaming_monitor', 'sharded_analysis'):\n"
+        "    load(f'examples/torch_{name}.py')\n"
+        "import test_torch_golden_analyzers, test_torch_golden_ballistics\n"
+        "import test_torch_golden_spectrum, test_torch_golden_stats, test_torch_golden_surround\n"
+        "import chip_smoke, meters_lv2_torch.runtime.native\n"
+        "import meters_lv2_torch.parallel.r128_sharded, meters_lv2_torch.parallel.spectrum_sharded\n"
+        "import meters_lv2_torch.parallel.meters_sharded, meters_lv2_torch.utils.state\n"
+        "import meters_lv2_torch.io.batch, meters_lv2_torch.models.sigdist\n"
+        "case = gpc.native_cases(True)['surround'][0]\n"
+        "side = gpc.PortSide(case, 'cpu')\n"
+        "assert gpc.signal(case, 0).shape == (5, 96000)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'meters_lv2_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tests")])),
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_registry_names_every_jax_meter():
     """Every meter of the JAX package is available in the port: none is
     left in NOT_YET_PORTED."""
