@@ -34,7 +34,8 @@ Phases, each printed on its own line; any failure exits non-zero:
               48000] with random offsets at fragm 2400 and 2205 against
               its plain version and the kernel's full-rate mode, and the
               surround wide layout against the narrow kernel and the plain
-              version at C=5 and C=8, B=256, and with NaN/Inf samples;
+              version at C=5 and C=8, B=256, 8 and 1, and with NaN/Inf
+              samples;
   4. main     at the bench operating point (B=256 streams of 48 kHz
               stereo, 12 flat 1 s blocks): EbuR128Meter, then dBTPstereo,
               BBCstereo, DINstereo, BBCM6, VUstereo, K20stereo and COR,
@@ -172,8 +173,10 @@ Phases, each printed on its own line; any failure exits non-zero:
               and 8, bitmeter_stats and surround_fused also at B = 1 and
               8, and the three
               analyzers' x-realtime over 60 blocks with their enqueue and
-              device time per update; each variant against its default,
-              and surround5 and surround8 x-realtime with the wide layout
+              device time per update; each variant against its default
+              (the surround wide layout against the narrow one at B = 1,
+              8 and 256, C = 5 and 8, each beside its bound), and
+              surround5 and surround8 x-realtime with the wide layout
               on.
 
 The CPU runs of DR-14 and TP+RMS (their true peak is a Python loop per
@@ -292,6 +295,16 @@ SUR_OPS_CHAN = 1 + 1 + 4 + 4
 
 def sur_ops_pair(C):
     return 4 * C + 9
+
+
+def surround_bound(B, C, T):
+    """The surround function's least time on the card in ms, and what
+    bounds it: x in, the K-meter and lowpass states in and out, pk and the
+    P = 4 pair sums out, over the memory rate, against SUR_OPS_CHAN a
+    channel-sample and sur_ops_pair(C) a pair-sample over the fp32 rate."""
+    b = (4 * B * C * T + 4 * B * C * (2 * 3 + 1) + 4 * B * 4 * 3) / HBM_BPS * 1e3
+    f = B * T * (SUR_OPS_CHAN * C + 4 * sur_ops_pair(C)) / FP32_FLOPS * 1e3
+    return (b, "bytes") if b >= f else (f, "operations")
 
 
 # H100 SXM datasheet peaks: HBM bytes/s, fp32 FLOP/s
@@ -1727,8 +1740,9 @@ def seg_kernel_cases(dev):
 def wide_kernel_cases(dev):
     """surround_fused's wide layout against its plain version and against the
     narrow kernel at the narrow kernel's bars (km_z, zl and pk bit-identical to
-    the narrow kernel: the same operations), at C=5 and C=8 with B=256
-    T=48000, with runtime pairs, and with NaN / +Inf / -Inf samples.
+    the narrow kernel: the same operations), at C=5 and C=8 with B=256, 8
+    (a cluster of CTAs a stream) and 1 at T=48000, with runtime pairs, and
+    with NaN / +Inf / -Inf samples.
     Returns (max abs error vs the plain version at C=8, B=256, breaches)."""
     from meters_lv2_torch.ops import surround_fused
 
@@ -1740,6 +1754,11 @@ def wide_kernel_cases(dev):
          False),
         ("NaN/+Inf/-Inf in x, B=5 C=5 T=1280", 5, 5, 1280, None, True),
         ("NaN/+Inf/-Inf in x, B=5 C=8 T=1280", 8, 5, 1280, None, True),
+        (f"B=8 C=5 T={FS}, pairs 0:4 1:1 4:0 2:1, NaN/+Inf/-Inf", 5, 8, FS,
+         [[0, 4], [1, 1], [4, 0], [2, 1]], True),
+        (f"B=8 C=8 T={FS}", 8, 8, FS, None, False),
+        (f"B=1 C=5 T={FS}", 5, 1, FS, None, False),
+        (f"B=1 C=8 T={FS}, NaN/+Inf/-Inf", 8, 1, FS, None, True),
     ]:
         args = surround_args(C, B, T, B + C + 1, dev, pairs, inject)
         got = surround_fused.fused_core_wide(*args)
@@ -2079,7 +2098,8 @@ def ballistics_body_times(dev, gpu, w_ppm, t_main):
                 t, *zs, **w_ppm, track_peak=False, envelope=env), 10 if t is t_main else 5))
         res[N] = (statistics.mean(ms[True]), statistics.mean(ms[False]))
         print(f"phase times: ballistics at N={N} T={FS}: envelope {res[N][0]:.4f} ms (medians "
-              f"{ms[True]}), serial {res[N][1]:.4f} ms (medians {ms[False]}), alternated [{gpu}]")
+              f"{ms[True]}), serial {res[N][1]:.4f} ms (medians {ms[False]}), alternated; byte "
+              f"bound {4 * N * FS / HBM_BPS * 1e3:.4f} ms [{gpu}]")
     del t_big
     return res
 
@@ -2136,9 +2156,11 @@ def variants_times(dev, blocks_dev, gpu, sur_plain):
     (default, variant, variant, default): seg mode against the full-rate
     kernel followed by shifted_segments, and its plain version, at [256, 2,
     48000]; the wide layout against the narrow one at C=5 and C=8 (the
-    plain version's ms are the narrow phase's, the same function);
-    surround5 and surround8 x-realtime with the wide layout on.  Returns
-    {name: (ms, plain ms)} for the kernels JSON line."""
+    plain version's ms are the narrow phase's, the same function), each
+    at B = 1, 8 and 256 beside its bound; surround5 and surround8
+    x-realtime with the wide layout on.  Returns {name: (ms, plain ms)} for
+    the kernels JSON line, and under "wide by shape" {"B=.. C=..": [wide
+    ms, narrow ms, bound ms]}."""
     import torch
 
     import meters_lv2_torch
@@ -2175,18 +2197,25 @@ def variants_times(dev, blocks_dev, gpu, sur_plain):
           f"{FRAGM} [{gpu}]")
     del x
 
-    for C in (5, 8):
-        args = surround_args(C, B_MAIN, FS, 7, dev)
-        wide, narrow = [], []
-        for w in "nwwn":
-            fn = surround_fused.fused_core_wide if w == "w" else surround_fused.fused_core
-            (wide if w == "w" else narrow).append(cuda_ms(lambda: fn(*args), 10))
-        out[f"wide C={C}"] = (statistics.mean(wide), sur_plain[C])
-        print(f"phase times: surround_fused wide layout {statistics.mean(wide):.4f} ms (medians "
-              f"{wide}), narrow {statistics.mean(narrow):.4f} ms (medians {narrow}), plain "
-              f"version {sur_plain[C]:.4f} ms (phase times above) at B={B_MAIN} C={C} P=4 "
-              f"T={FS} [{gpu}]")
-        del args
+    out["wide by shape"] = {}
+    for B in (1, 8, B_MAIN):
+        for C in (5, 8):
+            args = surround_args(C, B, FS, 7, dev)
+            wide, narrow = [], []
+            for w in "nwwn":
+                fn = surround_fused.fused_core_wide if w == "w" else surround_fused.fused_core
+                (wide if w == "w" else narrow).append(cuda_ms(lambda: fn(*args), 10))
+            bnd, by = surround_bound(B, C, FS)
+            out["wide by shape"][f"B={B} C={C}"] = [statistics.mean(wide),
+                                                    statistics.mean(narrow), bnd]
+            if B == B_MAIN:
+                out[f"wide C={C}"] = (statistics.mean(wide), sur_plain[C])
+            print(f"phase times: surround_fused wide layout {statistics.mean(wide):.4f} ms "
+                  f"(medians {wide}), narrow {statistics.mean(narrow):.4f} ms (medians "
+                  f"{narrow}), bound {bnd:.4f} ms ({by})"
+                  + (f", plain version {sur_plain[C]:.4f} ms (phase times above)"
+                     if B == B_MAIN else "") + f" at B={B} C={C} P=4 T={FS} [{gpu}]")
+            del args
 
     for name in ("surround5", "surround8"):
         m = meters_lv2_torch.create(name, FS)
@@ -4675,9 +4704,7 @@ def main():
     # x in, the K-meter / lowpass states in and out, pk and pacc out; the
     # function's own work per channel-sample and per pair-sample
     for C in (5, 8):
-        bounds[f"surround_fused C={C}"] = bound(
-            4 * B_MAIN * C * FS + 4 * B_MAIN * C * (2 * 3 + 1) + 4 * B_MAIN * 4 * 3,
-            B_MAIN * FS * (SUR_OPS_CHAN * C + 4 * sur_ops_pair(C)))
+        bounds[f"surround_fused C={C}"] = surround_bound(B_MAIN, C, FS)
     bounds["surround_fused"] = bounds["surround_fused C=8"]
     # the envelope body and the variants compute the same functions: the
     # envelope the ballistics function, the wide layout the surround
@@ -4868,6 +4895,8 @@ def main():
         "library_ms": None,
     }, {
         "name": "surround_fused_wide",
+        # the body redesigned for Hopper; its parent is tools/surround_wide_probe_parent.cu
+        "status": "redesigned",
         "route": "cuda",
         "source": "meters_lv2_torch/csrc/surround_wide.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_surround.py:252",
@@ -4882,6 +4911,8 @@ def main():
         "bound_ms": bounds["surround_fused wide C=8"][0],
         "bound_by": bounds["surround_fused wide C=8"][1],
         "library_ms": None,
+        # {"B=.. C=..": [wide ms, narrow ms, bound ms]}, alternated
+        "ms_by_shape": var_times["wide by shape"],
     }]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

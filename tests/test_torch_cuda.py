@@ -596,12 +596,15 @@ def test_surround_kernel_shapes(cuda, B, C, T):
     _assert_surround_close(got, ref)
 
 
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
 @pytest.mark.parametrize("B,C", [(1, 8), (8, 5), (256, 8)])
-def test_surround_kernel_repeats_bit_identical(cuda, B, C):
-    """Every sum is taken in a fixed order: two launches, the same bits."""
+def test_surround_kernel_repeats_bit_identical(cuda, B, C, layout):
+    """Every sum is taken in a fixed order, in both layouts' kernels: two
+    launches, the same bits."""
+    fn = surround_fused.fused_core_wide if layout == "wide" else surround_fused.fused_core
     args = _surround_args(C, B, 48000, 5, cuda, None, B >= 3)
-    first = [t.clone() for t in surround_fused.fused_core(*args)]
-    again = surround_fused.fused_core(*args)
+    first = [t.clone() for t in fn(*args)]
+    again = fn(*args)
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -1016,6 +1019,29 @@ def test_surround_wide_kernel_matches_plain_and_narrow(cuda, C, B, T, pairs, non
     _assert_surround_close(got, ref)
     _assert_surround_close(got, narrow)
     for a, b in zip(got[:3], narrow[:3]):  # km_z, zl, pk: the same operations
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("T", [128, 1280, 4224, 48000])
+@pytest.mark.parametrize("C", [3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("B", [1, 8, 256])
+def test_surround_wide_kernel_shapes(cuda, B, C, T):
+    """The wide kernel at every width: a stream over a cluster of CTAs
+    (B = 1 and 8; ranges of one block on short blocks) and one CTA a stream
+    at B = 256; one block, ten, 33 (a chunk and one lane of the next) and
+    375 (eleven chunks and 23 lanes); runtime pairs, and NaN / +-Inf samples
+    where there are three streams to carry them.  The narrow kernel's bars
+    against the plain version and against the narrow kernel, km_z, zl and
+    pk bit-identical to it."""
+    pairs = [[0, C - 1], [1, 1], [C - 1, 0], [2, 1]][:surround_fused.PAIRS_OF[C]]
+    args = _surround_args(C, B, T, B + C + T, cuda, pairs, B >= 3 and T >= 1280)
+    got = surround_fused.fused_core_wide(*args)
+    narrow = surround_fused.fused_core(*args)
+    ref = surround_fused.fused_core_reference(*args)
+    torch.cuda.synchronize()
+    _assert_surround_close(got, ref)
+    _assert_surround_close(got, narrow)
+    for a, b in zip(got[:3], narrow[:3]):
         assert _same(a, b)
 
 

@@ -25,6 +25,7 @@ import torch
 import meters_lv2_torch as mt
 from meters_lv2_torch.ops import surround_fused
 from meters_lv2_tpu.models import create as jax_create
+from meters_lv2_tpu.ops import pallas_surround
 
 torch.set_num_threads(1)
 
@@ -160,32 +161,43 @@ def body(x, kmz, zl0, sa, sb, ops, w1, wv, split):
             s0, s1 = km_step(s0, s1, at)
             s0, s1 = (s0 + g0_b[:, k]).astype(F32), (s1 + g1_b[:, k]).astype(F32)
         s = np.stack([s0, s1], -1)
-        pk = np.zeros((B, C), F32)
-        for pk_q, _ in sums:
-            pk = np.fmax(pk, pk_q)
-        mtot = np.zeros((B, nm), F32)
-        for q, (_, tq) in enumerate(sums):
-            for i in range(C):
-                for j in range(i, C):
-                    k = tri(C, i, j)
-                    Zi, Zj = zent[q][:, i], zent[q][:, j]
-                    mtot[:, k] = (mtot[:, k] + fma((Zi * Zj).astype(F32), tq[:, -1],
-                                  fma(Zj, tq[:, nm + i], fma(Zi, tq[:, nm + j], tq[:, k])))
-                                  ).astype(F32)
-        full = np.empty((B, C, C), F32)
-        for i in range(C):
-            for j in range(C):
-                full[:, i, j] = mtot[:, tri(C, min(i, j), max(i, j))]
-        P = sa.shape[0]
-        pacc = np.zeros((B, P, 3), F32)
-        for p in range(P):
-            for k, (ra, rb) in enumerate(((sa, sb), (sa, sa), (sb, sb))):
-                v = np.zeros(B, F32)
-                for i in range(C):
-                    for j in range(C):
-                        v = fma(F32(ra[p, i] * rb[p, j]), full[:, i, j], v)
-                pacc[:, p, k] = v
+    pk, pacc = combine(sums, zent, sa, sb)
     return s, zl[..., None], pk, pacc
+
+
+@np.errstate(invalid="ignore", over="ignore")
+def combine(sums, zent, sa, sb):
+    """The first CTA's end: the CTAs' peaks, their sums (pk [B, C], s [B,
+    NS]) composed with their lowpass entry states zent[q] [B, C] in rank
+    order, and the one-hot contraction over every channel.  (pk, pacc)."""
+    B, C = zent[0].shape
+    nm = C * (C + 1) // 2
+    pk = np.zeros((B, C), F32)
+    for pk_q, _ in sums:
+        pk = np.fmax(pk, pk_q)
+    mtot = np.zeros((B, nm), F32)
+    for q, (_, tq) in enumerate(sums):
+        for i in range(C):
+            for j in range(i, C):
+                k = tri(C, i, j)
+                Zi, Zj = zent[q][:, i], zent[q][:, j]
+                mtot[:, k] = (mtot[:, k] + fma((Zi * Zj).astype(F32), tq[:, -1],
+                              fma(Zj, tq[:, nm + i], fma(Zi, tq[:, nm + j], tq[:, k])))
+                              ).astype(F32)
+    full = np.empty((B, C, C), F32)
+    for i in range(C):
+        for j in range(C):
+            full[:, i, j] = mtot[:, tri(C, min(i, j), max(i, j))]
+    P = sa.shape[0]
+    pacc = np.zeros((B, P, 3), F32)
+    for p in range(P):
+        for k, (ra, rb) in enumerate(((sa, sb), (sa, sa), (sb, sb))):
+            v = np.zeros(B, F32)
+            for i in range(C):
+                for j in range(C):
+                    v = fma(F32(ra[p, i] * rb[p, j]), full[:, i, j], v)
+            pacc[:, p, k] = v
+    return pk, pacc
 
 
 def inputs(C, B, T, seed, pairs=None, nonfinite=()):
@@ -324,3 +336,309 @@ def test_body_matches_jax_xla_path():
     for n, a, b in (("km_z", kmz, kj), ("zl", zlo, zlj), ("zp", zpt, zpj)):
         a, b = np.asarray(a, F64), np.asarray(b, F64)
         assert np.all(np.abs(a - b) <= XLA_RTOL * np.abs(b) + XLA_SCALE * np.abs(b).max()), n
+
+
+# -- the wide layout: csrc/surround_wide.cu's decomposition ---------------------
+
+LANES, SEG, STAGES, MAX_PER = 32, 32, 2, 64  # the kernel's kLanes, kSeg, kStages, kMaxPer
+
+
+def swz(lane, h, seg=SEG):
+    """The kernel's swz(): the float offset of a lane's 4 samples h in its
+    row of a box of kLanes rows x seg samples, as the tensor copy's swizzle
+    (16-byte pieces XORed with the row's 128-byte line, modulo the row's
+    pieces) places them."""
+    rb = 4 * seg
+    return lane * seg + 4 * (h ^ ((lane * rb >> 7) & (rb // 16 - 1)))
+
+
+def wide_nd(C, c):
+    """The products row c sums: S_{c, c+d mod C} for d < wide_nd(C, c)."""
+    return C // 2 + 1 if C % 2 or c < C // 2 else C // 2
+
+
+def wide_split(B, nblk, C, sms=132, stages=STAGES):
+    """The wide launcher's choose_split; cap is the ring's floats."""
+    want = min(8, -(-sms // B), nblk)
+    if want <= 1:
+        return 1
+    split = max(want, -(-nblk // MAX_PER))
+    if split > 8:
+        return 1
+    per = -(-nblk // split)
+    cap = stages * (C + 1) * LANES * SEG
+    return -(-nblk // per) if (nblk - per) * 3 * C <= cap else 1
+
+
+def butterfly(v):
+    """warp_sum over the last axis (32 lanes): the xor butterfly, float32."""
+    idx = np.arange(LANES)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[..., idx ^ o]).astype(F32)
+    return v[..., 0]
+
+
+@np.errstate(invalid="ignore", over="ignore")
+def wide_block_sums(xb, wvb, lanes, g, sy, w1, om1, eps):
+    """Every (stream, row, block) at once, stage by stage as the kernel runs
+    them: xb [B, C, nblk, 128], wvb [nblk, 128], lanes [nblk] each block's
+    lane in its chunk.  A stage's slot holds each block's SEG samples at
+    the swizzled offsets swz(lane, h) (wv in row C); the lane writes its
+    zero-state lowpass outputs over its x there, and each row then reads
+    the other rows' outputs at the same offsets.  Returns pk, z, g0, g1, R,
+    Q [B, C, nblk] and S [B, C, nblk, C // 2 + 1] (row c's products, d = 0
+    .. wide_nd - 1)."""
+    B, C, nblk, _ = xb.shape
+    shape = (B, C, nblk)
+    pk, z, g0, g1, R, Q = (np.zeros(shape, F32) for _ in range(6))
+    S = np.zeros(shape + (C // 2 + 1,), F32)
+    # where sample 4 h + u of each block's segment sits in its row of the box
+    pos = np.array([[swz(j, h) - j * SEG + u for h in range(SEG // 4) for u in range(4)]
+                    for j in lanes])
+    for s0 in range(0, 128, SEG):
+        slot = np.full((B, C + 1, nblk, SEG), np.nan, F32)
+        np.put_along_axis(slot[:, :C], np.broadcast_to(pos, (B, C, nblk, SEG)),
+                          xb[..., s0:s0 + SEG], -1)
+        np.put_along_axis(slot[:, C], np.broadcast_to(pos, (B, nblk, SEG)),
+                          np.broadcast_to(wvb[:, s0:s0 + SEG], (B, nblk, SEG)), -1)
+        yv = np.zeros(shape + (SEG,), F32)
+        for u in range(SEG):  # own channel: outputs over x
+            v = np.take_along_axis(slot[:, :C], pos[None, None, :, u:u + 1], -1)[..., 0]
+            q = (v * v).astype(F32)
+            pk = np.fmax(pk, q)
+            g0 = fma(q, g[s0 + u, 0], g0)
+            g1 = fma(q, g[s0 + u, 1], g1)
+            z = fma(om1, z, (w1 * (v + eps)).astype(F32))
+            yv[..., u] = z
+        np.put_along_axis(slot[:, :C], np.broadcast_to(pos, (B, C, nblk, SEG)), yv, -1)
+        for u in range(SEG):  # each row's share of the products
+            at = pos[None, :, u:u + 1]
+            wt = np.take_along_axis(slot[:, C], at, -1)[..., 0][:, None]
+            r = sy[s0 + u]
+            wr = (wt * r).astype(F32)
+            y = yv[..., u]
+            wy = (wt * y).astype(F32)
+            for c in range(C):
+                for d in range(wide_nd(C, c)):
+                    other = np.take_along_axis(slot[:, (c + d) % C], at, -1)[..., 0]
+                    S[:, c, :, d] = fma(wy[:, c], other, S[:, c, :, d])
+            R = fma(wr, y, R)
+            Q = fma(wr, F32(r), Q)
+    return pk, z, g0, g1, R, Q, S
+
+
+@np.errstate(invalid="ignore", over="ignore")
+def wide_cta(blk, ops, rank, entry):
+    """One CTA over its range, from wide_block_sums' arrays cut to the range
+    ([B, C, n, ...]): the chunk walks of each row (every lane alike), the
+    corrections, the per-lane sums over the chunks and the warp butterflies.
+    ``entry`` (zl0 [B, C], s0, s1) is walked on in the first CTA.  Returns
+    (pk [B, C], s [B, NS]) as its Summary holds them, and (wx, s0, s1)."""
+    g, at, a128, sy = ops
+    pk_b, z_b, g0_b, g1_b, R_b, Q_b, S_b = blk
+    B, C, n = z_b.shape
+    nm, md = C * (C + 1) // 2, C // 2 + 1
+    wz = np.zeros((B, C), F32)
+    wa = F32(1.0)
+    wx, s0, s1 = (a.copy() for a in entry)
+    tot = np.zeros((B, C, LANES, md), F32)
+    U = np.zeros((B, C, LANES), F32)
+    V = np.zeros((B, C, LANES), F32)
+    for c0 in range(0, n, LANES):
+        nb = min(LANES, n - c0)
+        zin = np.zeros((B, C, LANES), F32)
+        ai = np.zeros(LANES, F32)
+        for i in range(nb):
+            e = z_b[:, :, c0 + i]
+            zin[..., i], ai[i] = wz, wa
+            wz = fma(a128, wz, e)
+            wa = F32(wa * a128)
+            if rank == 0:
+                wx = fma(a128, wx, e)
+                s0, s1 = km_step(s0, s1, at)
+                s0 = (s0 + g0_b[:, :, c0 + i]).astype(F32)
+                s1 = (s1 + g1_b[:, :, c0 + i]).astype(F32)
+        R = R_b[:, :, c0:c0 + nb]
+        Q = Q_b[:, :, c0:c0 + nb]
+        zl_ = zin[..., :nb]
+        for c in range(C):
+            for d in range(wide_nd(C, c)):
+                e = (c + d) % C
+                ze, Re = zl_[:, e], R[:, e]
+                corr = fma((zl_[:, c] * ze).astype(F32), Q[:, c],
+                           fma(ze, R[:, c], fma(zl_[:, c], Re, S_b[:, c, c0:c0 + nb, d])))
+                tot[:, c, :nb, d] = (tot[:, c, :nb, d] + corr).astype(F32)
+        U[..., :nb] = fma(ai[:nb], fma(zl_, Q, R), U[..., :nb])
+        V[..., :nb] = fma((ai[:nb] * ai[:nb]).astype(F32), Q, V[..., :nb])
+    s = np.zeros((B, nm + C + 1), F32)
+    for c in range(C):
+        for d in range(wide_nd(C, c)):
+            e = (c + d) % C
+            s[:, tri(C, min(c, e), max(c, e))] = butterfly(tot[:, c, :, d])
+        s[:, nm + c] = butterfly(U[:, c])
+    s[:, -1] = butterfly(V[:, 0])
+    return (pk_b.max(axis=2), s), (wx, s0, s1)
+
+
+@np.errstate(invalid="ignore", over="ignore")
+def wide_body(x, kmz, zl0, sa, sb, ops, w1, wv, split):
+    """csrc/surround_wide.cu's result for x [B, C, T] with `split` CTAs a
+    stream (ranges of ceil(nblk / split) blocks, chunks of 32)."""
+    g, at, a128, sy = ops
+    B, C, T = x.shape
+    nblk = T // 128
+    per = -(-nblk // split)
+    om1, eps = F32(1.0 - w1), F32(surround_fused.lowpass_eps(w1))
+    lanes = (np.arange(nblk) % per) % LANES
+    blk = wide_block_sums(x.reshape(B, C, nblk, 128), wv.reshape(nblk, 128), lanes, g, sy,
+                          F32(w1), om1, eps)
+    entry = (zl0[..., 0].copy(), kmz[..., 0].copy(), kmz[..., 1].copy())
+    sums, zent = [], [entry[0]]
+    for q in range(split):
+        sl = slice(q * per, min(nblk, (q + 1) * per))
+        sq, walked = wide_cta([a[:, :, sl] for a in blk], ops, q, entry)
+        sums.append(sq)
+        if q == 0:
+            wx, s0, s1 = walked
+    # the first CTA walks on through the gathered blocks
+    _, e_b, g0_b, g1_b = blk[:4]
+    for k in range(per, nblk):
+        if k % per == 0:
+            zent.append(wx)
+        wx = fma(a128, wx, e_b[:, :, k])
+        s0, s1 = km_step(s0, s1, at)
+        s0, s1 = (s0 + g0_b[:, :, k]).astype(F32), (s1 + g1_b[:, :, k]).astype(F32)
+    pk, pacc = combine(sums, zent, sa, sb)
+    return np.stack([s0, s1], -1), wx[..., None], pk, pacc
+
+
+def wide_emulate(args, ops, split):
+    x, kz, zl, sa, sb, _, _, w1, wv = args
+    return wide_body(x.numpy(), kz.numpy(), zl.numpy(), sa.numpy(), sb.numpy(), ops, w1,
+                     wv.numpy(), split)
+
+
+@pytest.mark.parametrize("seg", [8, 16, 32])
+def test_wide_swizzle(seg):
+    """swz() is the tensor copy's swizzle of a box of 32 rows x seg
+    samples (byte offset bits 4.. XORed with the offset's 128-byte line,
+    modulo the row's 16-byte pieces), a permutation of each row's pieces,
+    and conflict-free: the 8 lanes of each quarter-warp reading piece h
+    touch 8 different 16-byte bank groups."""
+    rb, pieces = 4 * seg, seg // 4
+    for j in range(LANES):
+        got = [swz(j, h, seg) for h in range(pieces)]
+        want = [(j * rb + 16 * h) ^ ((((j * rb + 16 * h) >> 7) & (pieces - 1)) << 4)
+                for h in range(pieces)]
+        assert [4 * g for g in got] == want
+        assert sorted(g - j * seg for g in got) == list(range(0, seg, 4))
+    for h in range(pieces):
+        for q in range(0, LANES, 8):
+            assert len({(swz(j, h, seg) // 4) % 8 for j in range(q, q + 8)}) == 8
+
+
+@pytest.mark.parametrize("C", [3, 4, 5, 6, 7, 8])
+def test_wide_rows_sum_every_product_once(C):
+    """The rows' shares S_{c, c+d mod C} cover the C(C+1)/2 channel products
+    once each, and no row sums more than one product above another."""
+    got = [tuple(sorted((c, (c + d) % C))) for c in range(C) for d in range(wide_nd(C, c))]
+    assert sorted(got) == [(i, j) for i in range(C) for j in range(i, C)]
+    assert max(wide_nd(C, c) for c in range(C)) - min(wide_nd(C, c) for c in range(C)) <= 1
+
+
+@pytest.mark.parametrize("C", [3, 4, 5, 6, 7, 8])
+def test_wide_body_matches_plain_at_every_width(C):
+    """T = 48000 (375 blocks) split as the wide launcher splits 3 streams (8
+    CTAs of 47 blocks, two chunks each, the last 46), the meter's routing;
+    km_z, zl and pk bit-identical to the narrow kernel's emulation."""
+    _, args, ops = inputs(C, 3, 48000, C)
+    split = wide_split(3, 375, C)
+    assert split == 8
+    got = wide_emulate(args, ops, split)
+    assert_card_bars(got, plain(args))
+    narrow = emulate(args, ops, choose_split(3, 375, C))
+    for a, b in zip(got[:3], narrow[:3]):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("split", [1, 2, 6, 8])
+def test_wide_body_splits_and_chunks(split):
+    """375 blocks over 1 CTA (11 chunks of 32, the last of 23), 2 (188 and
+    187 blocks), 6 (63 each, the last 60) and 8 CTAs a stream, runtime
+    pairs: the ranges, chunks and lanes compose to the same result."""
+    _, args, ops = inputs(5, 2, 48000, 11, PAIRS)
+    assert_card_bars(wide_emulate(args, ops, split), plain(args))
+
+
+@pytest.mark.parametrize("B,T,C,split", [
+    (256, 48000, 8, 1), (132, 48000, 5, 1), (100, 48000, 8, 6), (17, 48000, 5, 8),
+    (8, 48000, 8, 8), (1, 48000, 3, 8), (1, 128, 5, 1), (8, 1280, 8, 5), (1, 1280, 8, 5),
+    (1, 65536, 8, 8), (1, 65664, 8, 1), (1, 131200, 3, 1), (40, 48000, 5, 6)])
+def test_wide_split_choice(B, T, C, split):
+    """One CTA a stream once the streams fill the SMs; else an SM each in
+    all, at most 8 (a portable cluster), ranges of at most 64 blocks (two
+    chunks), as even as the blocks allow; longer blocks take one CTA."""
+    assert wide_split(B, T // 128, C) == split
+
+
+@pytest.mark.parametrize("T,split", [(128, 1), (256, 2), (1280, 5), (4224, 1), (4224, 2),
+                                     (8320, 3), (8320, 1)])
+def test_wide_body_short_and_partial_chunks(T, split):
+    """One block, ranges of one block, 33 blocks (a chunk and a lane), 65
+    blocks over 3 CTAs (22, 22, 21), and 65 in one CTA (two chunks and one
+    block): partial chunks and ranges."""
+    _, args, ops = inputs(8, 3, T, T + split, PAIRS)
+    assert_card_bars(wide_emulate(args, ops, split), plain(args))
+
+
+@pytest.mark.parametrize("C", [3, 5, 8])
+def test_wide_nonfinite_channel_reaches_every_pair(C):
+    """NaN, +Inf and -Inf samples inside a stage, in a stream's last block
+    and on a CTA's first block: every pair of a poisoned stream is
+    non-finite (C3), the clean stream's are finite, km_z has the plain
+    version's NaN and Inf."""
+    bad = [(0, C - 1, 300, np.nan), (1, 1, 47900, np.inf), (2, 0, 47 * 128 * 5, -np.inf)]
+    _, args, ops = inputs(C, 4, 48000, 20 + C, nonfinite=bad)
+    got = wide_emulate(args, ops, 8)
+    assert_card_bars(got, plain(args))
+    assert not np.isfinite(got[3][:3]).any() and np.isfinite(got[3][3]).all()
+    assert np.isinf(got[0][1]).any()
+
+
+@pytest.mark.parametrize("entry", [(0, np.inf), (1, np.nan), (1, -np.inf)])
+def test_wide_nonfinite_entry_state(entry):
+    """A non-finite K-meter or lowpass entry state over a stream split in
+    two: the plain version's NaN and Inf in km_z, zl and every pair."""
+    comp, v = entry
+    _, args, ops = inputs(5, 2, 128 * 70, 41)
+    args[1][0, 2, comp] = v
+    args[2][1, 3, 0] = v
+    got = wide_emulate(args, ops, 2)
+    assert_card_bars(got, plain(args))
+    assert not np.isfinite(got[3][1]).any() and np.isfinite(got[3][0]).all()
+
+
+@pytest.mark.parametrize("C", [5, 8])
+def test_wide_body_matches_jax_wide_interpret(C):
+    """The emulated wide body against the JAX package's wide kernel,
+    _fused_core_wide, in interpret mode (re-routed pairs, carried states),
+    composed into the pair integrators, at tests/test_torch_variants.py's
+    interpret bars: pk exact, km_z 2e-5 relative, zl and zp 2e-4 relative
+    (atol 1e-8)."""
+    B, T = 3, 1280
+    jm, tm = jax_create(f"surround{C}", FS), mt.create(f"surround{C}", FS)
+    _, args, ops = inputs(C, B, T, 30 + C, PAIRS)
+    x, kz, zl = (a.numpy() for a in args[:3])
+    zp = (0.01 * np.random.default_rng(7).random((B, 4, 3))).astype(F32)
+    sj = jm._sel(jnp.asarray(PAIRS, jnp.float32), jnp.float32)
+    kj, zlj, pkj, paccj = pallas_surround._fused_core_wide(
+        jnp.asarray(x), jnp.asarray(kz), jnp.asarray(zl), *sj, jm.km.sys.op(32),
+        jm.cor.lp.op(128), jm.cor.w1, jm.cor.w2, interpret=True)
+    kmz, zlo, pk, pacc = wide_emulate(args, ops, wide_split(B, T // 128, C))
+    _, decay = tm.cor._ema_weights(T, "cpu")
+    zpt = (zp * F32(decay) + pacc).astype(F32)
+    zpj = zp * F32((1.0 - jm.cor.w2) ** T) + np.asarray(paccj)
+    np.testing.assert_array_equal(pk, np.asarray(pkj))
+    np.testing.assert_allclose(kmz, np.asarray(kj), rtol=2e-5)
+    for what, a, b in (("zl", zlo, np.asarray(zlj)), ("zp", zpt, zpj)):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-8, err_msg=what)

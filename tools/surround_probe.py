@@ -41,21 +41,53 @@ loaded with ctypes.  Both bodies export the same launcher:
   kernel-no-pairs     the per-sample channel products cut: pacc wrong;
   kernel-no-walk      the chunk's serial walks cut: carries wrong.
 
+The wide layout (meters_lv2_torch/csrc/surround_wide.cu, launcher
+surround_wide_launch) has its own variants:
+
+  wide-parent              tools/surround_wide_probe_parent.cu, a verbatim
+                           copy of the wide body before its Hopper redesign;
+  wide-parent-loads-only   each step's sample work cut to a max of the
+                           loaded values and the pair rows' to a max of wv
+                           (the loads, the exchange and its barriers, the
+                           walk and the stores remain): timing only;
+  wide-parent-no-pairs     the pair rows' per-step sums cut: pacc wrong;
+  wide-parent-no-walk      the chunk's serial walk cut to its stores:
+                           carries wrong;
+  wide                     the source as it is;
+  wide-stages-3            three ring slots (correct);
+  wide-seg-16-stages-3     16 samples of each block a stage, three slots
+                           (correct);
+  wide-seg-8-stages-6      8 samples a stage, six slots (correct);
+  wide-l2-128, -l2-none    the tensor copies' L2 promotion at 128 bytes or
+                           none, in place of 256 (correct);
+  wide-no-fence            the proxy fence before each stage's barrier
+                           cut: timing only;
+  wide-loads-only          each sample's work cut to a max of the copied
+                           values (the copies, the exchange reads, the
+                           barriers, the walks and the stores remain):
+                           timing only;
+  wide-no-products         the channel products cut: pacc wrong;
+  wide-no-walk             the chunk-end walks cut: carries wrong.
+
+The wide layout's correct variants are also checked bit for bit against the
+narrow kernel (``kernel``) on km_z, zl and pk, the same operations.
+
 Inputs at T = 48000, seed 0: gauss (0.3 N(0, 1), the level of the repo's
 surround tests) and nonfinite (the same with NaN, +Inf and -Inf samples,
 one of them in a stream's last block and one in the middle of a stream),
 the meter's default routing, carried K-meter and lowpass states.  For each
 (B, C) in (1, 5), (1, 8), (8, 5), (8, 8), (256, 5), (256, 8), (256, 3),
 (256, 4) and
-each input: the parent's and the kernel's results against the plain
+each input: the parents' and the kernels' results against the plain
 version (ops/surround_fused.py::fused_core_reference) at chip_smoke.py's
 bars (pk bit-exact, km_z 4e-6 of its scale, zl and pacc 1e-5, non-finite
 values in the same places), whether two launches are bit-identical, and
 their CUDA-event ms a launch (10 launches queued behind a sleep kernel, so
 the host's launch time is hidden; median of 5), alternated parent, kernel,
-kernel, parent for --rounds rounds, beside the byte bound (x and wv read
-once at 3.35 TB/s).  Then every variant in turn at B = 256 (C = 8, 5 and
-3), at B = 8 (C = 8) and at B = 1 (C = 5).  Then the registers and spills ptxas reported, and
+wide-parent, wide, then the same in reverse, for --rounds rounds, beside
+the byte bound (x and wv read once at 3.35 TB/s).  Then every variant in
+turn at B = 256 (C = 8, 5 and 3), at B = 8 (C = 8 and 5) and at B = 1
+(C = 5 and 8).  Then the registers and spills ptxas reported, and
 from ``cuobjdump -sass`` each variant's static instructions by opcode class
 and its loop bodies.  The last line is the card's name and power limit.
 
@@ -96,6 +128,7 @@ INPUTS = ("gauss", "nonfinite")
 HBM = 3.35e12  # bytes/s, the H100 SXM data sheet
 
 _PARENT = (ROOT / "tools" / "surround_probe_parent.cu").read_text()
+_WPARENT = (ROOT / "tools" / "surround_wide_probe_parent.cu").read_text()
 
 
 def _between(src, start, end):
@@ -141,6 +174,27 @@ VARIANTS = {
     "parent-prefetch": ("parent", [(_P_LOADS, _P_PREFETCH)]),
     "kernel": ("kernel", []),
 }
+# the wide parent's cuts; each names the text it replaces in
+# tools/surround_wide_probe_parent.cu
+_WP_SAMPLE = _between(_WPARENT, "        for (int u = 0; u < 4; ++u) {\n          const float v = lane4(xv, u);",
+                      "        yo = make_float4(")
+_WP_PAIRS = _between(_WPARENT, "      if (pair && live) {\n        float4 yc[C];", "      buf ^= 1;")
+VARIANTS.update({
+    "wide-parent": ("wide-parent", []),
+    "wide-parent-loads-only": ("wide-parent", [
+        (_WP_SAMPLE, "        for (int u = 0; u < 4; ++u) {\n          pk = fmaxf(pk, lane4(xv, u));\n"
+                     "          yv[u] = 0.f;\n        }\n"),
+        (_WP_PAIRS, "      if (pair && live) {\n"
+                    "        const float4 w4 = *reinterpret_cast<const float4*>(wv + off + t0);\n"
+                    "        Q = fmaxf(Q, fmaxf(fmaxf(w4.x, w4.y), fmaxf(w4.z, w4.w)));\n      }\n")]),
+    "wide-parent-no-pairs": ("wide-parent", [(_WP_PAIRS, "")]),
+    "wide-parent-no-walk": ("wide-parent", [(
+        "        zl = fmaf(a128, zl, sm.e[c][i]);\n"
+        "        const float n0 = fmaf(at10, s1, at00 * s0) + sm.gin[c][0][i];\n"
+        "        const float n1 = fmaf(at11, s1, at01 * s0) + sm.gin[c][1][i];\n"
+        "        s0 = n0;\n        s1 = n1;\n", "")]),
+    "wide": ("wide", []),
+})
 # the kernel's own variants; each names the text it replaces in
 # meters_lv2_torch/csrc/surround_fused.cu (absent from the parent body)
 _K_SPLIT = ("  const int split = choose_split(B, nblk, C, Dims<C>::kThreads, sms,\n"
@@ -176,14 +230,51 @@ VARIANTS["kernel-no-walk"] = ("kernel", [
      "    if (false) {\n      for (int i = 0; i < nb; ++i) {\n"),
     ("    } else if (warp == 0 && lane == C) {\n      for", "    } else if (false) {\n      for"),
     ("    } else if (warp == 1 && lane < C && rank == 0) {\n", "    } else if (false) {\n")])
-CORRECT = {"parent", "parent-prefetch", "kernel"} | {
+# the wide source's own variants; each names the text it replaces in
+# meters_lv2_torch/csrc/surround_wide.cu (absent from the wide parent)
+_W_STAGES, _W_SEG = "constexpr int kStages = 2;", "constexpr int kSeg = 32;"
+_W_PROMOTE = "constexpr CUtensorMapL2promotion kPromote = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;"
+_W_FENCE = "    asm volatile(\"fence.proxy.async.shared::cta;\" ::: \"memory\");\n    __syncthreads();"
+_W_OWN = ("          const float v = lane4(xv, u);\n          const float q = v * v;\n"
+          "          pk = fmaxf(pk, q);\n          g0 = fmaf(q, lane4(G0, u), g0);\n"
+          "          g1 = fmaf(q, lane4(G1, u), g1);\n          z = fmaf(om1, z, w1 * (v + eps));\n"
+          "          yv[4 * h + u] = z;\n")
+_W_PRODUCTS = ("          const float wt = lane4(W, u), r = lane4(SY, u), wr = wt * r;\n",
+               "          Q = fmaf(wr, r, Q);\n")
+_W_WALK0 = "      for (int i = 0; i < nb; ++i) {\n        const float e = __shfl_sync(kFull, z, i);\n        const float h0"
+_W_WALK1 = "      for (int i = 0; i < nb; ++i) {\n        const float e = __shfl_sync(kFull, z, i);\n        if (lane == i)"
+VARIANTS.update({
+    "wide-stages-3": ("wide", [(_W_STAGES, "constexpr int kStages = 3;")]),
+    "wide-seg-16-stages-3": ("wide", [(_W_SEG, "constexpr int kSeg = 16;"),
+                                      (_W_STAGES, "constexpr int kStages = 3;")]),
+    "wide-seg-8-stages-6": ("wide", [(_W_SEG, "constexpr int kSeg = 8;"),
+                                     (_W_STAGES, "constexpr int kStages = 6;")]),
+    "wide-l2-128": ("wide", [(_W_PROMOTE, _W_PROMOTE.replace("256B", "128B"))]),
+    "wide-l2-none": ("wide", [(_W_PROMOTE, _W_PROMOTE.replace("L2_256B", "NONE"))]),
+    "wide-no-fence": ("wide", [(_W_FENCE, "    __syncthreads();")]),
+    "wide-loads-only": ("wide", [
+        (_W_OWN, "          pk = fmaxf(pk, lane4(xv, u));\n          yv[4 * h + u] = 0.f;\n"),
+        (_W_PRODUCTS, "          Q = fmaxf(Q, lane4(W, u));\n#pragma unroll\n"
+                      "          for (int d = 1; d < kMaxD; ++d)\n"
+                      "            if (d < nd) S[d] = fmaxf(S[d], lane4(yo[d], u));\n")]),
+    "wide-no-products": ("wide", [(_W_PRODUCTS, "          Q = fmaf(lane4(W, u), lane4(SY, u), Q);\n")]),
+    "wide-no-walk": ("wide", [(_W_WALK0, _W_WALK0.replace("i < nb", "i < 0")),
+                              (_W_WALK1, _W_WALK1.replace("i < nb", "i < 0"))]),
+})
+CORRECT = {"parent", "parent-prefetch", "kernel", "wide-parent", "wide"} | {
     n for n in VARIANTS if n.startswith(("kernel-split-", "kernel-stages-", "kernel-seg-",
-                                         "kernel-l2-", "kernel-threads-", "kernel-narrow-"))}
+                                         "kernel-l2-", "kernel-threads-", "kernel-narrow-",
+                                         "wide-stages-", "wide-seg-", "wide-l2-"))}
+
+
+WIDE_BASES = ("wide", "wide-parent")
 
 
 def variant_source(name):
     base, patches = VARIANTS[name]
-    src = _PARENT if base == "parent" else (CSRC / "surround_fused.cu").read_text()
+    src = {"parent": lambda: _PARENT, "wide-parent": lambda: _WPARENT,
+           "kernel": lambda: (CSRC / "surround_fused.cu").read_text(),
+           "wide": lambda: (CSRC / "surround_wide.cu").read_text()}[base]()
     for old, new in patches:
         if isinstance(old, tuple):  # the text between two markers, the markers kept
             i, j = src.find(old[0]), src.find(old[1])
@@ -287,9 +378,10 @@ def sass_counts(lib):
     return out
 
 
-def launcher(path):
+def launcher(path, wide=False):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    f = ctypes.CDLL(str(path)).surround_fused_launch
+    lib = ctypes.CDLL(str(path))
+    f = lib.surround_wide_launch if wide else lib.surround_fused_launch
     f.restype = ci
     f.argtypes = [vp] * 10 + [cf] * 3 + [ci] * 3 + [vp] * 4 + [vp]
     return f
@@ -357,7 +449,7 @@ def main():
     built = build_variants(names)
     build.kernels()  # the package's own build, for its build.log
     dev = torch.device("cuda", 0)
-    fns = {n: launcher(p) for n, (p, _) in built.items()}
+    fns = {n: launcher(p, VARIANTS[n][0] in WIDE_BASES) for n, (p, _) in built.items()}
     prepared = {}
 
     def prepare(a):
@@ -386,17 +478,25 @@ def main():
             raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
         return outs
 
+    def bits(u, v):
+        return all(torch.equal(p.view(torch.int32), q.view(torch.int32)) for p, q in zip(u, v))
+
     def check(name, a, ref, tag):
         """chip_smoke.py's compare_surround (its line printed); two launches
-        compared bit for bit."""
+        compared bit for bit; a wide variant's km_z, zl and pk against the
+        narrow kernel's bit for bit."""
         got = [t.clone() for t in launch(name, a)]
         again = launch(name, a)
         torch.cuda.synchronize()
         _, errs = compare_surround(got, ref, f"{name}, {tag}")
-        same = all(torch.equal(u.view(torch.int32), v.view(torch.int32))
-                   for u, v in zip(got, again))
-        return ("ok" if not errs else "FAILS: " + "; ".join(errs)) + (
-            "" if same else "; two launches DIFFER")
+        out = ("ok" if not errs else "FAILS: " + "; ".join(errs)) + (
+            "" if bits(got, again) else "; two launches DIFFER")
+        if VARIANTS[name][0] in WIDE_BASES and "kernel" in fns:
+            narrow = [t.clone() for t in launch("kernel", a)]
+            torch.cuda.synchronize()
+            out += ("; km_z, zl, pk bit-identical to the narrow kernel" if bits(got[:3], narrow[:3])
+                    else "; km_z, zl, pk DIFFER from the narrow kernel")
+        return out
 
     def ms(name, a, reps=10):
         launch(name, a)  # warm
@@ -433,7 +533,7 @@ def main():
                   f"(runs of 100: {[round(p, 1) for p in per]})", flush=True)
         print(subprocess.run(smi, capture_output=True, text=True).stdout.strip())
         return
-    pair = [n for n in ("parent", "kernel") if n in fns]
+    pair = [n for n in ("parent", "kernel", "wide-parent", "wide") if n in fns]
     for B, C in SHAPES:
         for kind in INPUTS:
             a = surround_inputs(C, B, kind, dev)
@@ -451,7 +551,7 @@ def main():
                   flush=True)
             prepared.clear()
             del a, ref
-    for B, C in ((256, 8), (256, 5), (256, 3), (8, 8), (1, 5)):
+    for B, C in ((256, 8), (256, 5), (256, 3), (8, 8), (8, 5), (1, 5), (1, 8)):
         a = surround_inputs(C, B, "gauss", dev)
         ref = surround_fused.fused_core_reference(*a)
         res, refused = {n: [] for n in fns}, {}
