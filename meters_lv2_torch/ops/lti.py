@@ -33,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiler
+
 
 # the per-backend float32 matmul settings (PyTorch 2.9 on); older versions
 # have the global one only
@@ -148,7 +150,8 @@ class LTIBlockOp:
         """The leaves as float32 tensors on ``device`` (cached per device)."""
         device = canonical_device(device)
         if device not in self._on_device:
-            self._on_device[device] = block_op_tensors(self, device)
+            with profiler.counted("cache.fill"):
+                self._on_device[device] = block_op_tensors(self, device)
         return self._on_device[device]
 
     def at_powers(self, levels: int, device) -> list[torch.Tensor]:
@@ -405,9 +408,10 @@ class LTISystem:
 
     def op(self, block: int) -> LTIBlockOp:
         if block not in self._ops:
-            self._ops[block] = build_lti_block_op(
-                self.A, self.B, self.C, self.D, block
-            )
+            with profiler.counted("cache.fill"):
+                self._ops[block] = build_lti_block_op(
+                    self.A, self.B, self.C, self.D, block
+                )
         return self._ops[block]
 
     def init(self, batch_shape=(), device="cuda") -> torch.Tensor:

@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import profiler
 from . import lti, resample, segment
 from .lti import canonical_device, check_tensor
 
@@ -136,7 +137,8 @@ def fused_core_reference(
 def _gains_on(gains: tuple, device) -> torch.Tensor:
     key = (gains, canonical_device(device))
     if key not in _GAINS_ON:
-        _GAINS_ON[key] = torch.tensor(gains, dtype=torch.float32, device=key[1])
+        with profiler.counted("cache.fill"):
+            _GAINS_ON[key] = torch.tensor(gains, dtype=torch.float32, device=key[1])
     return _GAINS_ON[key]
 
 
@@ -162,8 +164,9 @@ def toeplitz_row(op) -> np.ndarray:
 def _toeplitz_row_host(op) -> ctypes.Array:
     hit = _TOEPLITZ_ROW.get(id(op))
     if hit is None or hit[0] is not op:
-        hit = (op, (ctypes.c_float * BLOCK)(*toeplitz_row(op).tolist()))
-        _TOEPLITZ_ROW[id(op)] = hit
+        with profiler.counted("cache.fill"):
+            hit = (op, (ctypes.c_float * BLOCK)(*toeplitz_row(op).tolist()))
+            _TOEPLITZ_ROW[id(op)] = hit
     return hit[1]
 
 

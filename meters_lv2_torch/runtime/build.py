@@ -25,6 +25,8 @@ import subprocess
 from pathlib import Path
 from typing import Callable
 
+from ..utils import profiler
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "meters_lv2_torch"
@@ -114,12 +116,13 @@ def build() -> Path:
         nvcc = _nvcc()
         objs = [BUILD_DIR / f".{src.stem}.{os.getpid()}.o" for src in sources]
         try:
-            runs = _run_all([
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                for src, o in zip(sources, objs)
-            ])
-            if all(rc == 0 for _, rc, _ in runs):
-                runs += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+            with profiler.span("build.compile"):
+                runs = _run_all([
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(sources, objs)
+                ])
+                if all(rc == 0 for _, rc, _ in runs):
+                    runs += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
             (BUILD_DIR / "build.log").write_text(
                 "\n".join(" ".join(c) + "\n" + out for c, _, out in runs)
             )
@@ -140,89 +143,97 @@ def build() -> Path:
 
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with the argument
-    types of every entry point declared."""
+    types of every entry point declared.  The first call is the span
+    ``build.load`` (with ``build.compile`` inside when nvcc runs) and one
+    ``cache.fill``, whose seconds the span holds."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        f = lib.r128_fused_launch
-        f.restype = ci
-        f.argtypes = (
-            [vp] * 6  # x, z0, hist, sy, at, g (device)
-            + [ctypes.POINTER(ctypes.c_float)] * 3  # h, taps, gains (host)
-            + [ci] * 3  # B, C, T
-            + [vp, ci, ci]  # off (device, or None: full rate), fragm, n_slots
-            + [vp] * 4  # p or seg, z, hist_out, tpmax (device)
-            + [vp]  # cudaStream_t
-        )
-        cf = ctypes.c_float
-        f = lib.ballistics_launch
-        f.restype = ci
-        f.argtypes = (
-            [vp] * 5  # t, z1, z2, m, p (device)
-            + [ci] * 2  # N, T
-            + [cf] * 3  # w1, w2, w3
-            + [ci] * 2  # track_peak, envelope
-            + [ctypes.POINTER(ctypes.c_float)]  # envelope decrements c_k (host)
-            + [vp] * 4  # z1, z2, m, p out (device)
-            + [vp]  # cudaStream_t
-        )
-        f = lib.truepeak_fused_launch
-        f.restype = ci
-        f.argtypes = (
-            [vp, ci]  # x (device), row stride
-            + [vp] * 5  # hist, z1, z2, m, p (device)
-            + [ctypes.POINTER(ctypes.c_float)]  # taps [4, 48] (host)
-            + [ci] * 2  # N, T
-            + [cf] * 3  # w1, w2, w3
-            + [ci]  # envelope
-            + [ctypes.POINTER(ctypes.c_float)]  # envelope decrements c_k (host)
-            + [vp] * 5  # z1, z2, m, p, hist out (device)
-            + [vp]  # cudaStream_t
-        )
-        f = lib.bitmeter_stats_launch
-        f.restype = ci
-        f.argtypes = (
-            [vp, ci]  # x (device), row stride
-            + [ci] * 2  # N, T
-            + [vp] * 6  # hit, one, dset, flags, vmin, vmax (device, written in full)
-            + [vp]  # cudaStream_t
-        )
-        f = lib.spectrum_fused_launch
-        f.restype = ci
-        f.argtypes = (
-            [vp] * 8  # x, z0, v0, omega, kmat, sy, at, g (device)
-            + [ci] * 2  # B, T
-            + [vp] * 3  # val, peak, zf (device)
-            + [vp]  # cudaStream_t
-        )
-        f = lib.surround_fused_launch
-        f.restype = ci
-        f.argtypes = (
-            [vp] * 10  # x, km_z, zl, sel_a, sel_b, wv, km at, km g, lp at, lp sy (device)
-            + [cf] * 3  # w1, 1 - w1, eps
-            + [ci] * 3  # B, C, T
-            + [vp] * 4  # kmz, zl, pk, pacc (device)
-            + [vp]  # cudaStream_t
-        )
-        f = lib.surround_wide_launch
-        f.restype = ci
-        f.argtypes = lib.surround_fused_launch.argtypes
-        f = lib.stft_fused_launch
-        f.restype = ci
-        f.argtypes = (
-            [vp] * 4  # ext, win, tw, ptw (device; ptw None below W = 8192)
-            + [ci] * 6  # B, L, W, hop, F, mode
-            + [cf]  # thr
-            + [vp] * 2  # out_a, out_b (device)
-            + [vp]  # cudaStream_t
-        )
-        lib.stft_fused_body.restype = ci
-        lib.stft_fused_body.argtypes = [ci]
-        lib.meters_cuda_error_string.restype = ctypes.c_char_p
-        lib.meters_cuda_error_string.argtypes = [ci]
-        _lib = lib
+        with profiler.span("build.load"):
+            _lib = _load()
+        profiler.count("cache.fill")
     return _lib
+
+
+def _load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    f = lib.r128_fused_launch
+    f.restype = ci
+    f.argtypes = (
+        [vp] * 6  # x, z0, hist, sy, at, g (device)
+        + [ctypes.POINTER(ctypes.c_float)] * 3  # h, taps, gains (host)
+        + [ci] * 3  # B, C, T
+        + [vp, ci, ci]  # off (device, or None: full rate), fragm, n_slots
+        + [vp] * 4  # p or seg, z, hist_out, tpmax (device)
+        + [vp]  # cudaStream_t
+    )
+    cf = ctypes.c_float
+    f = lib.ballistics_launch
+    f.restype = ci
+    f.argtypes = (
+        [vp] * 5  # t, z1, z2, m, p (device)
+        + [ci] * 2  # N, T
+        + [cf] * 3  # w1, w2, w3
+        + [ci] * 2  # track_peak, envelope
+        + [ctypes.POINTER(ctypes.c_float)]  # envelope decrements c_k (host)
+        + [vp] * 4  # z1, z2, m, p out (device)
+        + [vp]  # cudaStream_t
+    )
+    f = lib.truepeak_fused_launch
+    f.restype = ci
+    f.argtypes = (
+        [vp, ci]  # x (device), row stride
+        + [vp] * 5  # hist, z1, z2, m, p (device)
+        + [ctypes.POINTER(ctypes.c_float)]  # taps [4, 48] (host)
+        + [ci] * 2  # N, T
+        + [cf] * 3  # w1, w2, w3
+        + [ci]  # envelope
+        + [ctypes.POINTER(ctypes.c_float)]  # envelope decrements c_k (host)
+        + [vp] * 5  # z1, z2, m, p, hist out (device)
+        + [vp]  # cudaStream_t
+    )
+    f = lib.bitmeter_stats_launch
+    f.restype = ci
+    f.argtypes = (
+        [vp, ci]  # x (device), row stride
+        + [ci] * 2  # N, T
+        + [vp] * 6  # hit, one, dset, flags, vmin, vmax (device, written in full)
+        + [vp]  # cudaStream_t
+    )
+    f = lib.spectrum_fused_launch
+    f.restype = ci
+    f.argtypes = (
+        [vp] * 8  # x, z0, v0, omega, kmat, sy, at, g (device)
+        + [ci] * 2  # B, T
+        + [vp] * 3  # val, peak, zf (device)
+        + [vp]  # cudaStream_t
+    )
+    f = lib.surround_fused_launch
+    f.restype = ci
+    f.argtypes = (
+        [vp] * 10  # x, km_z, zl, sel_a, sel_b, wv, km at, km g, lp at, lp sy (device)
+        + [cf] * 3  # w1, 1 - w1, eps
+        + [ci] * 3  # B, C, T
+        + [vp] * 4  # kmz, zl, pk, pacc (device)
+        + [vp]  # cudaStream_t
+    )
+    f = lib.surround_wide_launch
+    f.restype = ci
+    f.argtypes = lib.surround_fused_launch.argtypes
+    f = lib.stft_fused_launch
+    f.restype = ci
+    f.argtypes = (
+        [vp] * 4  # ext, win, tw, ptw (device; ptw None below W = 8192)
+        + [ci] * 6  # B, L, W, hop, F, mode
+        + [cf]  # thr
+        + [vp] * 2  # out_a, out_b (device)
+        + [vp]  # cudaStream_t
+    )
+    lib.stft_fused_body.restype = ci
+    lib.stft_fused_body.argtypes = [ci]
+    lib.meters_cuda_error_string.restype = ctypes.c_char_p
+    lib.meters_cuda_error_string.argtypes = [ci]
+    return lib
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

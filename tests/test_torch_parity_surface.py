@@ -27,6 +27,9 @@ LEFT_OUT = {
     "ops/fft.py::GemmRFFT.supports": "as GemmRFFT",
     "ops/lti.py::LTIBlockOp.tree_flatten": "a JAX pytree hook",
     "ops/lti.py::LTIBlockOp.tree_unflatten": "a JAX pytree hook",
+    "utils/profiler.py::time_op": "best-of-3 timing on white noise; the port is timed by "
+                                  "the benchmark (portbench/) and traced by its spans",
+    "utils/profiler.py::meter_throughput": "as time_op",
 }
 
 

@@ -321,23 +321,6 @@ def test_transport_reads_the_flag_only_on_a_roll_start_with_auto_reset():
 # -- profiling ---------------------------------------------------------------------
 
 
-def test_time_op_and_meter_throughput_on_cpu():
-    m = K20Meter(FS)
-    st = m.init((2,), device="cpu")
-    x = torch.from_numpy(_block(T=4800))
-    r = profiler.time_op(m.update, st, x, iters=3, warmup=1, best_of=1)
-    assert set(r) == {"ms_per_call", "calls_per_s", "iters"} and r["ms_per_call"] > 0
-    assert r["calls_per_s"] == pytest.approx(1e3 / r["ms_per_call"])
-    r2 = profiler.meter_throughput(m, (2,), 4800, FS, nchan=2, iters=2, device="cpu")
-    assert r2["x_realtime"] > 0
-    # display processors time process(); the draw is seeded
-    g = build_meter("goniometer", FS, 2)
-    r3 = profiler.meter_throughput(g, (1,), 512, FS, nchan=2, iters=2, device="cpu")
-    assert r3["x_realtime"] > 0
-    a = torch.randn(3, generator=torch.Generator().manual_seed(0))
-    assert torch.equal(a, torch.randn(3, generator=torch.Generator().manual_seed(0)))
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     d = str(tmp_path / "trace")
     m = K20Meter(FS)
