@@ -2478,6 +2478,14 @@ def collection_profile(pipe, st, x, lengths, chunk, trace_path):
     return host, dev, outside, busy / 1e3, wall_ms
 
 
+def r128_launches(s):
+    """r128_fused's launches in one EbuR128Meter update of s samples: seg
+    mode for a whole number of 128-sample blocks (the fragment, fs / 20, is
+    longer than 128 samples at every rate here), the full-rate mode for a
+    block with a tail, none for a block shorter than 128."""
+    return {"r128_fused": s >= 128 and s % 128 != 0, "r128_fused_seg": s >= 128 and s % 128 == 0}
+
+
 def predicted_launches(lengths, chunk, per_update):
     """Each kernel's launches in run_stream_ragged over streams of
     `lengths` (multiples of 4) at `chunk`: phase 1 takes the longest
@@ -2596,7 +2604,7 @@ def ingest_phase(dev, gpu, reset_counts, launch_counts):
                 # and M-6 run the envelope body and the bit meter its kernel
                 # at every length
                 big = s % 128 == 0
-                return {"r128_fused": big, "truepeak_fused": 3 * big, "spectrum_fused": big,
+                return {**r128_launches(s), "truepeak_fused": 3 * big, "spectrum_fused": big,
                         "ballistics": 3 * (not big), "ballistics_envelope": 5,
                         "bitmeter_stats": 1}
 
@@ -2714,7 +2722,7 @@ def ingest_phase(dev, gpu, reset_counts, launch_counts):
             o5 = to_host(p5.read(s5)[0])
             c5 = launch_counts()
             want5, _, _ = predicted_launches(len5, chunk, lambda s: {
-                "r128_fused": s % 128 == 0, "surround_fused": s % 128 == 0})
+                **r128_launches(s), "surround_fused": s % 128 == 0})
             want5 = {k: want5.get(k, 0) for k in c5}
             if c5 != want5:
                 fail(f"ingest: the 5-channel collection's launches {c5} are not the {want5} "
@@ -2909,17 +2917,19 @@ def live_cpu_run(names, C, sig, script):
 
 def live_update(names):
     """The kernels' launches in one pipeline update of s samples through
-    `names`: the 128-aligned bulk runs r128_fused, truepeak_fused (dBTP,
-    DR-14, TP+RMS), spectrum_fused and surround_fused; a tail of s % 128
-    samples the plain ops, where dBTP, DR-14 and TP+RMS run the serial
-    ballistics body; the PPM needles and BBC M-6 run the envelope body and
-    the bit meter its kernel at every length."""
+    `names`: the 128-aligned bulk runs r128_fused (r128_launches),
+    truepeak_fused (dBTP, DR-14, TP+RMS), spectrum_fused and
+    surround_fused; a tail of s % 128 samples the plain ops, where dBTP,
+    DR-14 and TP+RMS run the serial ballistics body; the PPM needles and
+    BBC M-6 run the envelope body and the bit meter its kernel at every
+    length."""
     n_tp = sum(n in names for n in ("truepeak", "dr14", "tpnrms"))
     n_env = sum(n in names for n in ("din", "nor", "bbc", "ebu", "bbcms"))
 
     def per(s):
         big, tail = s >= 128, s % 128 != 0
-        return {"r128_fused": big * ("r128" in names), "truepeak_fused": n_tp * big,
+        r128 = {k: v * ("r128" in names) for k, v in r128_launches(s).items()}
+        return {**r128, "truepeak_fused": n_tp * big,
                 "spectrum_fused": big * ("spectrum" in names),
                 "surround_fused": big * ("surround" in names), "ballistics": n_tp * tail,
                 "ballistics_envelope": n_env, "bitmeter_stats": int("bitmeter" in names)}
@@ -3910,8 +3920,9 @@ def sharded_phase(dev, gpu):
 # -- phase tools: the parity sweep's native leg and the examples on the card --
 TOOLS_TIMEOUT = 600  # seconds each subprocess may take
 TOOLS_WORKERS = 4  # the sweep's engine processes, beside the examples' ranks
-TOOLS_ROWS = ("r128_fused", "ballistics", "ballistics_envelope", "truepeak_fused",
-              "spectrum_fused", "surround_fused", "bitmeter_stats", "stft_fused")
+TOOLS_ROWS = ("r128_fused", "r128_fused_seg", "ballistics", "ballistics_envelope",
+              "truepeak_fused", "spectrum_fused", "surround_fused", "bitmeter_stats",
+              "stft_fused")
 
 
 def tools_predicted(case):
@@ -3996,7 +4007,7 @@ def tools_phase(gpu):
             if not row["share"] <= 1 or row["streams"] != case.B:
                 fail(f"phase tools: {case.name}: {row['share']} of its bar over {row['streams']} "
                      f"streams (want <= 1 over {case.B})")
-            got = row["launches"]  # every counted kernel; seg mode and the wide layout 0
+            got = row["launches"]  # every counted kernel; the wide layout 0
             want = {k: tools_predicted(case).get(k, 0) for k in got}
             if got != want:
                 fail(f"phase tools: {case.name} launches {got}, predicted {want}")
@@ -4272,14 +4283,16 @@ def main():
     meter = meters_lv2_torch.create("EBUr128", FS, nchan=2)
     blocks = main_blocks()
     st = meter.init((B_MAIN,), device=dev)
-    r128_fused.launch_count = 0
+    r128_fused.launch_count = r128_fused.seg_launch_count = 0
     for xb in blocks:
         st = meter.update(st, torch.as_tensor(xb, device=dev), flat=True)
     out, st = meter.read(st)
     torch.cuda.synchronize()
-    launches = r128_fused.launch_count
+    main_seg = r128_fused.seg_launch_count
+    launches = r128_fused.launch_count + main_seg
     if launches != len(blocks):
         fail(f"main path launched the kernel {launches} times for {len(blocks)} blocks")
+    seg_share = main_seg / launches
     for k in ("integrated", "lra", "dbtp"):
         v = out[k]
         if v.shape != (B_MAIN,) or not bool(torch.isfinite(v).all()):
@@ -4302,9 +4315,10 @@ def main():
         if not torch.equal(getattr(st, k)[:4].cpu(), getattr(st_c, k)):
             fail(f"main path {k}: card vs CPU not exact")
     print(f"phase main: ok: {len(blocks)} x 1 s flat blocks at B={B_MAIN}, kernel launches "
-          f"{launches}; integrated[0] {out['integrated'][0].item():.4f} LUFS, lra[0] "
-          f"{out['lra'][0].item():.4f} LU, dbtp[0] {out['dbtp'][0].item():.6f}; streams 0-3 "
-          f"vs CPU: worst readout diff {worst:.3g} dB, dbtp {tp_db:.3g} dB, histograms exact")
+          f"{launches}, seg mode's share {seg_share:.3f}; integrated[0] "
+          f"{out['integrated'][0].item():.4f} LUFS, lra[0] {out['lra'][0].item():.4f} LU, "
+          f"dbtp[0] {out['dbtp'][0].item():.6f}; streams 0-3 vs CPU: worst readout diff "
+          f"{worst:.3g} dB, dbtp {tp_db:.3g} dB, histograms exact")
 
     def all_counts():
         return (r128_fused.launch_count, ballistics_core.launch_count,
@@ -4739,7 +4753,7 @@ def main():
         "route": "cuda",
         "source": "meters_lv2_torch/csrc/r128_fused.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_r128.py:287",
-        "launches": launches,
+        "launches": launches - main_seg,  # the main path's full-rate updates
         "ingest_launches": ingest_launches["r128_fused"],  # phase ingest's pipeline runs
         "live_launches": live_launches["r128_fused"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["r128_fused"],  # phase sharded, every rank
@@ -4882,7 +4896,8 @@ def main():
         "route": "cuda",
         "source": "meters_lv2_torch/csrc/r128_fused.cu",
         "replaces": "meters_lv2_tpu/ops/pallas_r128.py:298",
-        "launches": seg_launches,  # the 12 main-path blocks through fused_core(off=...)
+        # the 12 blocks through fused_core(off=...) and the main path's seg-mode updates
+        "launches": seg_launches + main_seg,
         "ingest_launches": ingest_launches["r128_fused_seg"],  # phase ingest's pipeline runs
         "live_launches": live_launches["r128_fused_seg"],  # phase live's four engine runs
         "sharded_launches": sharded_launches["r128_fused_seg"],  # phase sharded, every rank

@@ -13,7 +13,11 @@ TruePeakdsp::process_max, radar history, integration start/pause/reset).
   * 1/20 s fragment powers (:207-248): shifted segment sums over the block,
     a 59-fragment history carried so momentary (8 frags / 400 ms) and
     short-term (60 frags / 3 s) windows are sliding sums over
-    [history ++ new fragments].
+    [history ++ new fragments].  A block of T >= 128 samples with
+    T % 128 == 0, where a fragment (fs / 20) is longer than 128 samples,
+    gets its fragment sums from fused_core's seg mode, so the full-rate
+    power is never written; any other block sums the power with
+    ops.segment.shifted_segments.  On the CPU both give the same bits.
   * Loudness histograms (751 bins, 0.1 LU, :62-79): integer scatter-add;
     M points every 2nd fragment, S points every 10th (:229-242), phase
     carried across blocks (div1/div2).
@@ -259,24 +263,39 @@ class EbuR128Meter:
         dev = x.device
         fragm = self.fragm
 
+        off = state.off  # [...] samples already in the open fragment
+        n_slots = T // fragm + 2
+        seg = None
+
         # 1+2) K-weighting power and 4x-oversampled true peak: the kernel
         # covers the 128-aligned bulk, the plain ops any remainder, with
-        # chained state.  Non-finite filter state is flushed per block, as
+        # chained state.  A block that is all bulk takes the kernel's seg
+        # mode, which returns the fragment sums of step 3 in place of the
+        # full-rate power.  Non-finite filter state is flushed per block, as
         # the reference does per fragment (ebu_r128_proc.cc:331-334).
         if T >= _BLOCK:
             Tm = (T // _BLOCK) * _BLOCK
             with profiler.span("r128.kernel"):
                 xin = x.reshape(-1, C * T) if flat else x[..., :Tm].reshape(-1, C, Tm)
+                seg_kw = {}
+                if T == Tm and fragm > _BLOCK:
+                    profiler.count("r128.seg")
+                    seg_kw = dict(off=off.reshape(-1).contiguous(), fragm=fragm,
+                                  n_slots=n_slots)
                 pr, zr, hr, tpm = r128_fused.fused_core(
                     xin.contiguous(),
                     state.z.reshape(-1, C, 4).contiguous(),
                     state.tp_hist.reshape(-1, C, 47).contiguous(),
                     self.gains,
                     self.sys.op(_BLOCK),
+                    **seg_kw,
                 )
                 z = zr.reshape(*batch, C, 4)
                 tp_hist = hr.reshape(*batch, C, 47)
-                p = pr.reshape(*batch, Tm)
+                if seg_kw:
+                    seg = pr.reshape(*batch, n_slots)
+                else:
+                    p = pr.reshape(*batch, Tm)
             dbtp = torch.maximum(state.dbtp, tpm.reshape(batch))
             if T > Tm:
                 with profiler.span("r128.tail"):
@@ -292,9 +311,8 @@ class EbuR128Meter:
         # 3) fragment segmentation with carried partial fragment, and the
         # fragment history: last 59 entries of [history ++ new]'s valid prefix
         with profiler.span("r128.fragments"):
-            off = state.off  # [...] samples already in the open fragment
-            n_slots = T // fragm + 2
-            seg = segment.shifted_segments(p, off, fragm, n_slots, "sum")
+            if seg is None:
+                seg = segment.shifted_segments(p, off, fragm, n_slots, "sum")
             seg = torch.cat(
                 [seg[..., :1] + (state.frpwr - 1e-30)[..., None], seg[..., 1:]], dim=-1
             )  # continue the open fragment

@@ -16,8 +16,9 @@ the first output is the per-fragment power sums seg [B, n_slots] of p placed
 at the per-stream sample offset ``off`` on a ``fragm`` grid,
 ``segment.shifted_segments(p, off, fragm, n_slots, "sum")`` up to float32
 summation order, and the full-rate p is never written.  z, hist and tpmax
-are those of the full-rate mode.  The R128 meter keeps the full-rate path
-and ``shifted_segments``, as the JAX meter does.
+are those of the full-rate mode.  The R128 meter runs seg mode on every
+block that is a whole number of 128-sample blocks, and the full-rate mode
+with ``shifted_segments`` on a block with a tail (models/ebur128.py).
 
 ``fused_core`` launches the hand-written CUDA kernel (csrc/r128_fused.cu)
 for CUDA tensors and uses the plain PyTorch version,

@@ -7,6 +7,10 @@ at a per-stream sample offset before an aligned reshape-reduce.  Shifted
 segment f spans the tail (`off` samples) of unshifted row f-1 plus the head
 of row f, so two masked reductions and a one-row shift give the result
 without moving data.
+
+The R128 meter calls it itself only for a block that is not a whole
+number of 128-sample blocks; on the others ops.r128_fused's seg mode
+returns the fragment sums (its plain CPU version through this function).
 """
 
 from __future__ import annotations

@@ -30,7 +30,8 @@ The spans and counters the port records:
   ``build.load`` (``runtime/build.py``: the kernel library's load) with
   ``build.compile`` when nvcc runs; the counter ``cache.fill``, one for
   each fill of a cache of device tensors, operators or host arrays on the
-  R128 path (only a miss counts).
+  R128 path (only a miss counts); the counter ``r128.seg``, one for each
+  update whose fragment sums come from r128_fused's seg mode.
 """
 
 from __future__ import annotations

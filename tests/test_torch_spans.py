@@ -1,7 +1,7 @@
 """The port's spans and counters (utils/profiler.py) on the R128 path, on
 CPU tensors: off by default and recording nothing, the same answers on and
-off, the span tree of one update() and one read(), the cache.fill counter,
-and the Chrome trace of profiler.trace().
+off, the span tree of one update() and one read(), the cache.fill and
+r128.seg counters, and the Chrome trace of profiler.trace().
 
 The module state is shared by every test of a worker process, so a fixture
 turns the spans off and clears them around each test.
@@ -138,6 +138,19 @@ def test_cache_fill_counts_a_cold_meter_and_not_a_warm_one():
     m.read(st)
     _, warm = profiler.collect()
     assert "cache.fill" not in warm
+
+
+@pytest.mark.parametrize("T, seg", [(48000, True), (2560, True), (4800, False), (100, False)])
+def test_r128_seg_counts_the_updates_that_take_seg_mode(T, seg):
+    """One r128.seg an update whose block is a whole number of 128-sample
+    blocks, none for a block with a tail or one shorter than 128."""
+    m = EbuR128Meter(FS)
+    st = m.update(m.init((3,), device="cpu"), _block(T), flat=True)
+    profiler.enable()
+    for k in range(3):
+        st = m.update(st, _block(T, seed=k + 1), flat=True)
+    _, counters = profiler.collect()
+    assert counters.get("r128.seg") == ((3, 0.0) if seg else None)
 
 
 def test_collect_clears():

@@ -13,7 +13,10 @@ alone after it), with ``meters_lv2_torch.utils.profiler.enable()`` before
 the system is built, and prints one JSON line: ``metrics``, the cell's
 per-layer metrics as the benchmark reads them and the readings of
 ``portbench/spans.py`` (``glue_ms.*``, ``enqueue_ms.kernel`` and
-``.glue``, ``cache_fills``, ``setup_s.*``); ``idle_gaps`` labelled by the
+``.glue``, ``cache_fills``, ``setup_s.*``) and ``seg_share``, the
+window's updates that took r128_fused's seg mode (the counter ``r128.seg``
+over the ``r128.update`` spans); ``window_counts``, each of the port's
+counters over the window; ``idle_gaps`` labelled by the
 innermost span at each gap's start; ``probe_ms``, the median host ms of
 each part of update() over the updates timed alone (``self`` is
 r128.update less its parts); ``setup_s`` and ``setup_parts`` (seconds to
@@ -158,6 +161,9 @@ def run(workload: str, seed: int, seconds: float, port_spans: bool, device: str 
     fills = spans.cache_fills(win_spans, win_counts)
     if fills is not None:
         metrics["cache_fills"] = fills
+    n_updates = sum(s.name == "r128.update" for s in win_spans)
+    if n_updates:
+        metrics["seg_share"] = win_counts.get("r128.seg", (0, 0.0))[0] / n_updates
     by_span: dict[str, float] = {}
     for s in win_spans:
         by_span[s.name] = by_span.get(s.name, 0.0) + (s.t1 - s.t0) * 1e-9
@@ -174,6 +180,7 @@ def run(workload: str, seed: int, seconds: float, port_spans: bool, device: str 
         "setup_s": setup_s,
         "setup_parts": setup_parts,
         "setup_counts": {k: list(v) for k, v in set_counts.items()},
+        "window_counts": {k: v[0] for k, v in win_counts.items()},
         "spans_s": by_span,
         "device": kind if device == "cpu" else f"{kind}; {card()}",
     }
