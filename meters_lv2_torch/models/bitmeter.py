@@ -24,6 +24,7 @@ import torch
 
 from ..ops import bitmeter_stats as _stats
 from ..ops.bitmeter_stats import NMAN, bitmeter_stats
+from ..utils import profiler
 from .base import register
 
 NPOS = _stats.NPOS  # hit/one position range (matches reference region width)
@@ -70,30 +71,33 @@ class BitMeter:
     def update(self, state: BitMeterState, x: torch.Tensor) -> BitMeterState:
         """x: [..., T] float32 with the state's batch shape."""
         *batch, T = x.shape
-        # one gate for the whole call (reference: per-process() acquisition
-        # stop at INT_MAX)
-        run = state.integrating & (state.time < _CAP - T)
-        d = bitmeter_stats(x.to(torch.float32).reshape(-1, T))
-        d = {k: v.reshape((*batch, *v.shape[1:])) for k, v in d.items()}
-        gate = run.to(torch.int32)
+        with profiler.span("bitmeter.update"):
+            # one gate for the whole call (reference: per-process() acquisition
+            # stop at INT_MAX)
+            run = state.integrating & (state.time < _CAP - T)
+            with profiler.span("bitmeter.kernel"):
+                d = bitmeter_stats(x.to(torch.float32).reshape(-1, T))
+            d = {k: v.reshape((*batch, *v.shape[1:])) for k, v in d.items()}
+            gate = run.to(torch.int32)
 
-        def gated(old, delta):  # old + delta * gate, one launch
-            return torch.addcmul(old, delta, gate[..., None] if delta.ndim > run.ndim else gate)
+            def gated(old, delta):  # old + delta * gate, one launch
+                return torch.addcmul(old, delta,
+                                     gate[..., None] if delta.ndim > run.ndim else gate)
 
-        return BitMeterState(
-            hit=gated(state.hit, d["hit"]),
-            one=gated(state.one, d["one"]),
-            dset=gated(state.dset, d["dset"]),
-            nan=gated(state.nan, d["nan"]),
-            inf=gated(state.inf, d["inf"]),
-            den=gated(state.den, d["den"]),
-            zero=gated(state.zero, d["zero"]),
-            pos=gated(state.pos, d["pos"]),
-            vmin=torch.where(run, torch.minimum(state.vmin, d["vmin"]), state.vmin),
-            vmax=torch.where(run, torch.maximum(state.vmax, d["vmax"]), state.vmax),
-            time=state.time + gate * T,
-            integrating=state.integrating,
-        )
+            return BitMeterState(
+                hit=gated(state.hit, d["hit"]),
+                one=gated(state.one, d["one"]),
+                dset=gated(state.dset, d["dset"]),
+                nan=gated(state.nan, d["nan"]),
+                inf=gated(state.inf, d["inf"]),
+                den=gated(state.den, d["den"]),
+                zero=gated(state.zero, d["zero"]),
+                pos=gated(state.pos, d["pos"]),
+                vmin=torch.where(run, torch.minimum(state.vmin, d["vmin"]), state.vmin),
+                vmax=torch.where(run, torch.maximum(state.vmax, d["vmax"]), state.vmax),
+                time=state.time + gate * T,
+                integrating=state.integrating,
+            )
 
     def read(self, state: BitMeterState):
         """bim_stats atom contents (bitmeter.c:268-296)."""

@@ -25,6 +25,7 @@ import torch
 
 from ..ops import hist as hist_ops
 from ..ops import segment
+from ..utils import profiler
 from .base import register
 from .kmeter import KMeter, KMeterState
 from .truepeak import TruePeakMeter, TruePeakMeterState
@@ -91,26 +92,32 @@ class DR14Meter:
         *batch, C, T = x.shape
         if C != self.nchan:
             raise ValueError(f"expected {self.nchan} channels, got {C}")
-        x = x.to(torch.float32)
-        km = self.km.update(state.km, x)
-        tp = self.tp.update(state.tp, x)
-        if not self.dr_mode:
-            return dataclasses.replace(state, km=km, tp=tp)
+        with profiler.span("dr14.update"):
+            x = x.to(torch.float32)
+            with profiler.span("dr14.km"):
+                km = self.km.update(state.km, x)
+            with profiler.span("dr14.tp"):
+                tp = self.tp.update(state.tp, x)
+            if not self.dr_mode:
+                return dataclasses.replace(state, km=km, tp=tp)
 
-        win_len = self.win_len
-        n_slots = T // win_len + 2
-        off = state.scnt[..., None].expand(*batch, C)
-        seg_sum = segment.shifted_segments(torch.square(x), off, win_len, n_slots, "sum")
-        # the reference keeps peak_cur = MAX(peak_cur, v) of the signed
-        # sample (dr14.c:404): positive peaks only, floor 0; the MAX
-        # comparison skips NaN samples, so they map to the identity
-        xpk = torch.where(torch.isnan(x), 0.0, x)
-        seg_peak = segment.shifted_segments(xpk, off, win_len, n_slots, "max")
-        seg_sum = torch.cat([seg_sum[..., :1] + state.rms_sum[..., None], seg_sum[..., 1:]], -1)
-        ncomp = torch.div(state.scnt + T, win_len, rounding_mode="floor")
-        return self._dr_epilogue(
-            state, km, tp, seg_sum, seg_peak, ncomp, (state.scnt + T) % win_len
-        )
+            win_len = self.win_len
+            with profiler.span("dr14.windows"):
+                n_slots = T // win_len + 2
+                off = state.scnt[..., None].expand(*batch, C)
+                seg_sum = segment.shifted_segments(torch.square(x), off, win_len, n_slots, "sum")
+                # the reference keeps peak_cur = MAX(peak_cur, v) of the signed
+                # sample (dr14.c:404): positive peaks only, floor 0; the MAX
+                # comparison skips NaN samples, so they map to the identity
+                xpk = torch.where(torch.isnan(x), 0.0, x)
+                seg_peak = segment.shifted_segments(xpk, off, win_len, n_slots, "max")
+                seg_sum = torch.cat([seg_sum[..., :1] + state.rms_sum[..., None],
+                                     seg_sum[..., 1:]], -1)
+            with profiler.span("dr14.hist"):
+                ncomp = torch.div(state.scnt + T, win_len, rounding_mode="floor")
+                return self._dr_epilogue(
+                    state, km, tp, seg_sum, seg_peak, ncomp, (state.scnt + T) % win_len
+                )
 
     def _dr_epilogue(self, state, km, tp, seg_sum, seg_peak, ncomp, scnt_new) -> DR14State:
         """DR measurement from per-window sums and peaks (dr14.c:263-343).
@@ -171,42 +178,43 @@ class DR14Meter:
 
     def read(self, state: DR14State):
         """Port readouts (dr14.c:447-516)."""
-        out, _, state = self._display(state)
-        nf = state.num_windows
-        m_cut = torch.clamp(torch.floor(nf / 5.0), min=1.0).to(torch.int32)
-        # whole bins from the top until the count reaches m_cut; bin 0 is
-        # excluded (the b > 0 loop bound)
-        rev = torch.flip(state.hist[..., 1:], [-1])
-        csum = torch.cumsum(rev, -1)
-        cum_above = torch.cat([torch.zeros_like(csum[..., :1]), csum[..., :-1]], -1)
-        inc = cum_above < m_cut[..., None, None]
-        b_idx = torch.arange(DR_HISTBINS - 1, 0, -1, dtype=torch.float32, device=rev.device)
-        cd = torch.pow(10.0, 0.05 * (b_idx - DR_HISTBINS + 1) / 100.0)
-        revf = rev.to(torch.float32)
-        score = torch.where(inc, revf * cd * cd, 0.0).sum(-1)
-        n_cut = torch.where(inc, revf, 0.0).sum(-1)
-        enough = nf[..., None] > 2
-        rms_db = torch.where(
-            (n_cut > 0) & enough,
-            coeff_to_db(torch.sqrt(score / torch.clamp(n_cut, min=1.0))),
-            -81.0,
-        )
-        peak_db = torch.where(enough, coeff_to_db(state.peak_top2[..., 1]), -81.0)
-        both = (rms_db > -80.0) & (peak_db > -80.0)
-        dr_raw = torch.clamp(peak_db, max=0.0) - rms_db
-        dr = torch.where(both, torch.clamp(dr_raw, 1.0, 20.0), 21.0)
-        nvalid = both.sum(-1)
-        dr_total = torch.where(
-            nvalid > 0,
-            torch.clamp(torch.where(both, dr_raw, 0.0).sum(-1) / torch.clamp(nvalid, min=1),
-                        1.0, 20.0),
-            21.0,
-        )
-        out.update(
-            m_rms=rms_db, dr=dr, dr_total=dr_total,
-            block_count=3.0 * state.num_windows.to(torch.float32),
-        )
-        return out, state
+        with profiler.span("dr14.read"):
+            out, _, state = self._display(state)
+            nf = state.num_windows
+            m_cut = torch.clamp(torch.floor(nf / 5.0), min=1.0).to(torch.int32)
+            # whole bins from the top until the count reaches m_cut; bin 0 is
+            # excluded (the b > 0 loop bound)
+            rev = torch.flip(state.hist[..., 1:], [-1])
+            csum = torch.cumsum(rev, -1)
+            cum_above = torch.cat([torch.zeros_like(csum[..., :1]), csum[..., :-1]], -1)
+            inc = cum_above < m_cut[..., None, None]
+            b_idx = torch.arange(DR_HISTBINS - 1, 0, -1, dtype=torch.float32, device=rev.device)
+            cd = torch.pow(10.0, 0.05 * (b_idx - DR_HISTBINS + 1) / 100.0)
+            revf = rev.to(torch.float32)
+            score = torch.where(inc, revf * cd * cd, 0.0).sum(-1)
+            n_cut = torch.where(inc, revf, 0.0).sum(-1)
+            enough = nf[..., None] > 2
+            rms_db = torch.where(
+                (n_cut > 0) & enough,
+                coeff_to_db(torch.sqrt(score / torch.clamp(n_cut, min=1.0))),
+                -81.0,
+            )
+            peak_db = torch.where(enough, coeff_to_db(state.peak_top2[..., 1]), -81.0)
+            both = (rms_db > -80.0) & (peak_db > -80.0)
+            dr_raw = torch.clamp(peak_db, max=0.0) - rms_db
+            dr = torch.where(both, torch.clamp(dr_raw, 1.0, 20.0), 21.0)
+            nvalid = both.sum(-1)
+            dr_total = torch.where(
+                nvalid > 0,
+                torch.clamp(torch.where(both, dr_raw, 0.0).sum(-1) / torch.clamp(nvalid, min=1),
+                            1.0, 20.0),
+                21.0,
+            )
+            out.update(
+                m_rms=rms_db, dr=dr, dr_total=dr_total,
+                block_count=3.0 * state.num_windows.to(torch.float32),
+            )
+            return out, state
 
     def reset(self, state: DR14State) -> DR14State:
         return self.init(state.scnt.shape, state.scnt.device)

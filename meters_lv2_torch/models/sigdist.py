@@ -21,6 +21,7 @@ import dataclasses
 import torch
 
 from ..ops import hist as hist_ops
+from ..utils import profiler
 from .base import register
 
 DIST_BIN = 361
@@ -81,27 +82,30 @@ class SigDistMeter:
 
     def update(self, state: SigDistState, x: torch.Tensor) -> SigDistState:
         """x: [..., T] with the state's batch shape."""
-        x = x.to(torch.float32)
-        T = x.shape[-1]
-        run = state.integrating & (state.time < _CAP - T)
-        bins = hist_ops.float_to_int32(torch.round(DIST_ZERO + x * DIST_RANGE))
-        ok = (bins >= 0) & (bins < DIST_BIN) & run[..., None]
-        hist = state.hist + hist_ops.bincount(bins, DIST_BIN, valid=ok, dtype=torch.int32)
-        # out-of-range samples are skipped for avg/var too (`if (bin < 0)
-        # continue;`, sigdistlv2.c:303-318)
-        if self.reference_oor_count:
-            mean, m2 = self._oor_welford(state, x, ok)
-            n = state.n + ok.sum(-1, dtype=torch.int32)
-        else:
-            n, mean, m2 = hist_ops.welford_merge(
-                (state.n, state.mean, state.m2), hist_ops.welford_block(x, ok)
+        with profiler.span("sigdist.update"):
+            x = x.to(torch.float32)
+            T = x.shape[-1]
+            run = state.integrating & (state.time < _CAP - T)
+            with profiler.span("sigdist.hist"):
+                bins = hist_ops.float_to_int32(torch.round(DIST_ZERO + x * DIST_RANGE))
+                ok = (bins >= 0) & (bins < DIST_BIN) & run[..., None]
+                hist = state.hist + hist_ops.bincount(bins, DIST_BIN, valid=ok, dtype=torch.int32)
+            # out-of-range samples are skipped for avg/var too (`if (bin < 0)
+            # continue;`, sigdistlv2.c:303-318)
+            with profiler.span("sigdist.moments"):
+                if self.reference_oor_count:
+                    mean, m2 = self._oor_welford(state, x, ok)
+                    n = state.n + ok.sum(-1, dtype=torch.int32)
+                else:
+                    n, mean, m2 = hist_ops.welford_merge(
+                        (state.n, state.mean, state.m2), hist_ops.welford_block(x, ok)
+                    )
+                total = state.total + torch.where(ok, x, 0.0).sum(-1)
+                time = state.time + torch.where(run, T, 0).to(torch.int32)
+            return SigDistState(
+                hist=hist, n=n, mean=mean, m2=m2, total=total, time=time,
+                integrating=state.integrating,
             )
-        total = state.total + torch.where(ok, x, 0.0).sum(-1)
-        time = state.time + torch.where(run, T, 0).to(torch.int32)
-        return SigDistState(
-            hist=hist, n=n, mean=mean, m2=m2, total=total, time=time,
-            integrating=state.integrating,
-        )
 
     def _oor_welford(self, state: SigDistState, x: torch.Tensor, ok: torch.Tensor):
         """Reference-exact Welford chain (sigdistlv2.c:313-318): the count

@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from ..utils import profiler
 from . import ballistics_core, resample, truepeak_fused
 from .ballistics_core import f32
 from .design import BallisticsCoeffs
@@ -197,6 +198,8 @@ def true_peak_update_fused(
     Tm = (T // truepeak_fused.BLOCK) * truepeak_fused.BLOCK
     if Tm:
         body = "envelope" if ballistics_core.envelope_ok(coeffs.w1, coeffs.w2) else "serial"
+        if body == "serial":
+            profiler.count("truepeak.serial")
         z1, z2, m, p, hf = truepeak_fused.truepeak_fused(xf[:, :Tm], hf, z1, z2, m, p, **w,
                                                          body=body)
     if Tm < T:  # the tail: plain oversampling, chained states, the serial

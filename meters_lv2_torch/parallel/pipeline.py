@@ -23,6 +23,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..utils import profiler
 from ..utils.interop import tree_map
 
 # how each meter family consumes the [..., C, T] pipeline input, by class
@@ -79,6 +80,28 @@ def freeze(old, new, alive: torch.Tensor):
     return tree_map(pick, old, new)
 
 
+def _update_one(m, st, x: torch.Tensor, kw: dict):
+    """One meter's update on the pipeline's [..., C, T] block, in the form
+    its family takes (``_MODES``)."""
+    mode = _mode(m)
+    if mode == "per_channel":
+        return m.update(st, x, **kw)
+    if mode == "mono":
+        return m.update(st, x[..., 0, :], **kw)
+    if mode == "stereo_mix":
+        C = x.shape[-2]
+        if C == 2:
+            return m.update(st, x, stereo=True, **kw)
+        if C == 1:
+            return m.update(st, x[..., 0, :], **kw)
+        # >2 channels: equal-weight downmix (generalizes the reference's
+        # stereo (l+r)/2, spectrumlv2.c:195-201)
+        return m.update(st, x.mean(dim=-2), **kw)
+    if hasattr(m, "update"):
+        return m.update(st, x, **kw)
+    return m.process(st, x)[1]  # display processors expose process()
+
+
 class MeterPipeline:
     def __init__(self, meters: Mapping[str, Any], nchan: int = 2):
         self.meters = dict(meters)
@@ -103,26 +126,11 @@ class MeterPipeline:
         (src/meters.cc:562-563), so they may change from one call to the
         next."""
         new = {}
-        for name, m in self.meters.items():
-            mode = _mode(m)
-            kw = dict((controls or {}).get(name, {}))
-            if mode == "per_channel":
-                new[name] = m.update(state[name], x, **kw)
-            elif mode == "mono":
-                new[name] = m.update(state[name], x[..., 0, :], **kw)
-            elif mode == "stereo_mix":
-                C = x.shape[-2]
-                if C == 2:
-                    new[name] = m.update(state[name], x, stereo=True, **kw)
-                elif C == 1:
-                    new[name] = m.update(state[name], x[..., 0, :], **kw)
-                else:  # >2 channels: equal-weight downmix (generalizes the
-                    # reference's stereo (l+r)/2, spectrumlv2.c:195-201)
-                    new[name] = m.update(state[name], x.mean(dim=-2), **kw)
-            elif hasattr(m, "update"):
-                new[name] = m.update(state[name], x, **kw)
-            else:  # display processors expose process()
-                _, new[name] = m.process(state[name], x)
+        with profiler.span("pipe.update"):
+            for name, m in self.meters.items():
+                with profiler.span(f"pipe.{name}"):
+                    new[name] = _update_one(m, state[name], x,
+                                            dict((controls or {}).get(name, {})))
         return new
 
     def read(self, state, ref_level_db=None):

@@ -32,6 +32,19 @@ The spans and counters the port records:
   each fill of a cache of device tensors, operators or host arrays on the
   R128 path (only a miss counts); the counter ``r128.seg``, one for each
   update whose fragment sums come from r128_fused's seg mode.
+
+  On the mastering meters and the pipeline that runs them:
+  ``pipe.update`` (``parallel/pipeline.py``) with one child a meter,
+  ``pipe.<meter name>``; ``dr14.update`` (``models/dr14.py``, TP+RMS too)
+  with the children ``dr14.km`` (the K-meter), ``dr14.tp`` (the true peak),
+  ``dr14.windows`` (the shifted window sums and peaks) and ``dr14.hist``
+  (the epilogue: gate, histogram and the slot loop of the top two peaks);
+  ``dr14.read``; ``sigdist.update`` (``models/sigdist.py``) with
+  ``sigdist.hist`` and ``sigdist.moments``; ``bitmeter.update``
+  (``models/bitmeter.py``) with ``bitmeter.kernel`` (the bitmeter_stats
+  call); the counter ``truepeak.serial`` (``ops/ballistics.py``), one for
+  each true-peak update whose bulk falls back to truepeak_fused's serial
+  body because the envelope does not hold.
 """
 
 from __future__ import annotations

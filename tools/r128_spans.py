@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """A traced run of a benchmark cell with the port's spans on: the glue,
-the host's time in update() and set-up, split by the port's own spans.
+the device's and the host's time in update() and set-up, split by the
+port's own spans.  Any cell: ``r128_batch`` (the R128 spans) or
+``mastering_qc`` (``pipe.update``, ``dr14.*``, ``sigdist.*``,
+``bitmeter.*`` and the counter ``truepeak.serial``).
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -15,11 +18,18 @@ per-layer metrics as the benchmark reads them and the readings of
 ``portbench/spans.py`` (``glue_ms.*``, ``enqueue_ms.kernel`` and
 ``.glue``, ``cache_fills``, ``setup_s.*``) and ``seg_share``, the
 window's updates that took r128_fused's seg mode (the counter ``r128.seg``
-over the ``r128.update`` spans); ``window_counts``, each of the port's
+over the ``r128.update`` spans) and ``truepeak_serial``, the window's
+true-peak updates that fell back to truepeak_fused's serial body (the
+counter ``truepeak.serial``, 0 where the envelope held, wherever
+``dr14.tp`` ran); ``window_counts``, each of the port's
 counters over the window; ``idle_gaps`` labelled by the
 innermost span at each gap's start; ``probe_ms``, the median host ms of
-each part of update() over the updates timed alone (``self`` is
-r128.update less its parts); ``setup_s`` and ``setup_parts`` (seconds to
+each part of the top span of update() over the updates timed alone (its
+spans at every depth by name; ``self`` is the top span, ``r128.update`` or
+``pipe.update``, less its direct children); ``device_ms_by_kernel`` and
+``device_ms_by_span``, the traced programme's device ms an update by the
+port's kernels (``glue`` for the rest) and by the innermost span, the
+port's or the harness's, that launched each operation; ``setup_s`` and ``setup_parts`` (seconds to
 the run's start, that is the imports, the pool, and the port's set-up
 spans by name); ``spans_s``, the host seconds in each of the port's spans
 over the window, waits for room in the launch queue included; the card's
@@ -102,19 +112,50 @@ def _median_ms(xs: list) -> float:
 
 
 def probe_parts(win_spans: list, probes: list) -> dict:
-    """Median host ms of each part of the updates timed alone."""
+    """Median host ms of each part of the updates timed alone: for each of
+    the port's top spans inside a probe (``r128.update``, ``pipe.update``),
+    the time in each span below it, summed by name at any depth, and
+    ``self``, the top span less its direct children."""
     parts: dict[str, list] = {}
     for i, s in enumerate(win_spans):
-        if s.name != "r128.update" or not any(p0 <= s.t0 and s.t1 <= p1 for p0, p1 in probes):
+        if s.parent != -1 or not any(p0 <= s.t0 and s.t1 <= p1 for p0, p1 in probes):
             continue
-        own = {}
-        for c in win_spans[i + 1:]:
+        own: dict[str, float] = {}
+        below = {i}
+        direct = 0.0
+        for j in range(i + 1, len(win_spans)):
+            c = win_spans[j]
+            if c.parent not in below:
+                continue
+            below.add(j)
+            t = (c.t1 - c.t0) * 1e-9
+            own[c.name] = own.get(c.name, 0.0) + t
             if c.parent == i:
-                own[c.name] = own.get(c.name, 0.0) + (c.t1 - c.t0) * 1e-9
-        own["self"] = (s.t1 - s.t0) * 1e-9 - sum(own.values())
+                direct += t
+        own["self"] = (s.t1 - s.t0) * 1e-9 - direct
         for k, v in own.items():
             parts.setdefault(k, []).append(v)
     return {k: _median_ms(v) for k, v in parts.items()}
+
+
+def device_split(nested) -> dict:
+    """Device ms an update of the traced programme, (a) by the port's
+    kernels by name and ``glue`` for every other operation, (b) by the
+    innermost span, the port's or the harness's, that launched each
+    operation (``none`` where none was open)."""
+    if nested is None or not nested.device_ops:
+        return {}
+    units = nested.count("update")
+    if not units:
+        return {}
+    by_kernel: dict[str, float] = {}
+    by_span: dict[str, float] = {}
+    for name, _, dur, span in nested.device_ops:
+        kernel = next((k for k in trace.PORT_KERNELS if k in name), "glue")
+        by_kernel[kernel] = by_kernel.get(kernel, 0.0) + dur * 1e-3 / units
+        by_span[span or "none"] = by_span.get(span or "none", 0.0) + dur * 1e-3 / units
+    order = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1]))  # noqa: E731
+    return {"device_ms_by_kernel": order(by_kernel), "device_ms_by_span": order(by_span)}
 
 
 def run(workload: str, seed: int, seconds: float, port_spans: bool, device: str = "cuda",
@@ -161,6 +202,8 @@ def run(workload: str, seed: int, seconds: float, port_spans: bool, device: str 
     fills = spans.cache_fills(win_spans, win_counts)
     if fills is not None:
         metrics["cache_fills"] = fills
+    if any(s.name == "dr14.tp" for s in win_spans):  # 0 where the envelope held
+        metrics["truepeak_serial"] = win_counts.get("truepeak.serial", (0, 0.0))[0]
     n_updates = sum(s.name == "r128.update" for s in win_spans)
     if n_updates:
         metrics["seg_share"] = win_counts.get("r128.seg", (0, 0.0))[0] / n_updates
@@ -177,6 +220,7 @@ def run(workload: str, seed: int, seconds: float, port_spans: bool, device: str 
         "enqueue_ms_each": [1e3 * t for t in alone],
         "idle_gaps": nested.idle_gaps() if nested is not None else [],
         "probe_ms": probe_parts(win_spans, probes),
+        **device_split(nested),
         "setup_s": setup_s,
         "setup_parts": setup_parts,
         "setup_counts": {k: list(v) for k, v in set_counts.items()},
