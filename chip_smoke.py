@@ -10,8 +10,9 @@ Phases, each printed on its own line; any failure exits non-zero:
   1. device   the card, its power limit, fp32 matmul precision settings;
   2. build    nvcc builds every kernel from meters_lv2_torch/csrc;
   3. kernels  each kernel (r128_fused, ballistics, truepeak_fused,
-              bitmeter_stats, spectrum_fused, surround_fused, stft_fused)
-              against its plain PyTorch version on the same card tensors
+              bitmeter_stats, spectrum_fused, surround_fused, stft_fused,
+              sigdist_fused) against its plain PyTorch version on the same
+              card tensors
               (truepeak_fused's default envelope body against its own and
               the serial body's plain version, its serial body against
               its own, at N=512 T=48000 and on rows with NaN and +-Inf at
@@ -35,7 +36,10 @@ Phases, each printed on its own line; any failure exits non-zero:
               its plain version and the kernel's full-rate mode, and the
               surround wide layout against the narrow kernel and the plain
               version at C=5 and C=8, B=256, 8 and 1, and with NaN/Inf
-              samples;
+              samples; sigdist_fused against SigDistMeter's plain update
+              on channel 0 of [256, 2, 48000] and of a [4, 2, 4800] block
+              with NaN, +-Inf and the bin edges, a row not integrating and
+              one at the time cap;
   4. main     at the bench operating point (B=256 streams of 48 kHz
               stereo, 12 flat 1 s blocks): EbuR128Meter, then dBTPstereo,
               BBCstereo, DINstereo, BBCM6, VUstereo, K20stereo and COR,
@@ -48,7 +52,9 @@ Phases, each printed on its own line; any failure exits non-zero:
               (both modes) and bitmeter (channel 0) over 60 blocks (20 DR
               windows), created and initialised with no device argument,
               streams 0-3 after 12 blocks held against CPU runs, and a
-              NaN/+-Inf stream through sigdist and DR-14 on both; then
+              NaN/+-Inf stream through sigdist and DR-14 on both
+              (sigdist_fused launched once an update in sigdist's default
+              mode, never in the out-of-range mode); then
               spectr30stereo, created and initialised with no device
               argument, over the 12 blocks with set_speed mid-stream, and
               in 1000-sample blocks (a 104-sample tail per update through
@@ -171,7 +177,8 @@ Phases, each printed on its own line; any failure exits non-zero:
               time of an update under torch.profiler); stft_fused also
               against torch.fft.rfft of the windowed frames and at B = 1
               and 8, bitmeter_stats and surround_fused also at B = 1 and
-              8, and the three
+              8, sigdist_fused against the plain update at B = 256 with the
+              launches queued, and the three
               analyzers' x-realtime over 60 blocks with their enqueue and
               device time per update; each variant against its default
               (the surround wide layout against the narrow one at B = 1,
@@ -426,6 +433,27 @@ def cuda_ms(fn, reps, warmup=2):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def queued_ms(fn, reps, tries=5):
+    """The median over tries of the CUDA-event ms a call of fn, reps calls
+    queued behind a ~1 ms sleep kernel: the device's time, the host's
+    launch time hidden."""
+    import torch
+
+    fn()  # warm
+    times = []
+    for _ in range(tries):
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -1737,6 +1765,64 @@ def seg_kernel_cases(dev):
     return main_err, plain_ms, failures
 
 
+def sigdist_kernel_cases(dev):
+    """sigdist_fused against SigDistMeter._plain_update on the same state
+    (one plain update of history) and block: channel 0 of [256, 2, 48000]
+    (the main-path shape, rows strided), and B=4 T=4800 with NaN, +-Inf
+    and half-integer bin edges, one row not integrating and one at the
+    2^31 time cap.  hist, n and time exact; mean, m2 and total within 1e-5
+    of each leaf's scale with NaN alike (float32 sums in another order).
+    Returns (the largest of those differences over its scale at the
+    main-path shape, breaches)."""
+    import torch
+
+    from meters_lv2_torch.models.sigdist import SigDistMeter
+    from meters_lv2_torch.ops import sigdist_fused
+
+    rng = np.random.default_rng(28)
+    m = SigDistMeter(FS)
+    failures, main_err = [], 0.0
+    for tag, B, T, odd in [(f"main-path shape channel 0 of [{B_MAIN}, 2, {FS}]", B_MAIN, FS, False),
+                           ("NaN/+-Inf, bin edges, cap: channel 0 of [4, 2, 4800]", 4, 4800, True)]:
+        x = (0.05 * rng.standard_normal((2, B, 2, T))).astype(np.float32)
+        if odd:
+            edges = ((np.arange(-1, 362) + 0.5 - 180.0) / 150.0).astype(np.float32)
+            x[1, 0, 0, :edges.size] = edges
+            x[1, 0, 0, 500:503] = (np.nan, np.inf, -np.inf)
+        hd, xd = (torch.as_tensor(a, device=dev)[:, 0] for a in x)
+        st = m._plain_update(m.init((B,), device=dev), hd)
+        if odd:
+            st.integrating[1] = False
+            st.time[2] = 2**31 - 1 - T
+        n0 = sigdist_fused.launch_count
+        got = sigdist_fused.sigdist_fused(st.hist, st.n, st.mean, st.m2, st.total, st.time,
+                                          st.integrating, xd)
+        ref = m._plain_update(st, xd)
+        errs = [] if sigdist_fused.launch_count == n0 + 1 else ["not one launch"]
+        errs += [f"{k} not exact" for k, g in zip(("hist", "n"), got[:2]) if not torch.equal(
+            g, getattr(ref, k))]
+        if not torch.equal(got[5], ref.time):
+            errs.append("time not exact")
+        worst = 0.0
+        for k, g in zip(("mean", "m2", "total"), got[2:5]):
+            r = getattr(ref, k)
+            if not torch.equal(torch.isnan(g), torch.isnan(r)):
+                errs.append(f"{k} NaN positions differ")
+            f = torch.isfinite(r)
+            scale = r[f].abs().max().item() if bool(f.any()) else 0.0
+            e = (g[f] - r[f]).abs().max().item() / scale if scale else 0.0
+            worst = max(worst, e)
+            if e > 1e-5:
+                errs.append(f"{k} {e:.3g} of its scale")
+        if B == B_MAIN:
+            main_err = worst
+        print(f"  sigdist_fused {tag}: hist, n, time exact {not any('exact' in e for e in errs)}; "
+              f"mean, m2, total worst {worst:.3g} of scale: "
+              f"{'ok' if not errs else 'FAIL ' + '; '.join(errs)}")
+        failures += [f"sigdist_fused {tag}: {e}" for e in errs]
+    return main_err, failures
+
+
 def wide_kernel_cases(dev):
     """surround_fused's wide layout against its plain version and against the
     narrow kernel at the narrow kernel's bars (km_z, zl and pk bit-identical to
@@ -2601,12 +2687,12 @@ def ingest_phase(dev, gpu, reset_counts, launch_counts):
                 # multiple of 128 (the truepeak_fused of dBTP, DR-14 and
                 # TP+RMS), the plain tail ops a shorter one, where dBTP, DR-14
                 # and TP+RMS run the serial ballistics body; DIN, NOR, BBC, EBU
-                # and M-6 run the envelope body and the bit meter its kernel
-                # at every length
+                # and M-6 run the envelope body, and the bit meter and sigdist
+                # their kernels, at every length
                 big = s % 128 == 0
                 return {**r128_launches(s), "truepeak_fused": 3 * big, "spectrum_fused": big,
                         "ballistics": 3 * (not big), "ballistics_envelope": 5,
-                        "bitmeter_stats": 1}
+                        "bitmeter_stats": 1, "sigdist_fused": 1}
 
             want, n_steps, levels = predicted_launches(lengths, chunk, stereo_update)
             n_small = sum(s % 128 != 0 for s in levels)
@@ -2921,8 +3007,8 @@ def live_update(names):
     truepeak_fused (dBTP, DR-14, TP+RMS), spectrum_fused and
     surround_fused; a tail of s % 128 samples the plain ops, where dBTP,
     DR-14 and TP+RMS run the serial ballistics body; the PPM needles and
-    BBC M-6 run the envelope body and the bit meter its kernel at every
-    length."""
+    BBC M-6 run the envelope body, and the bit meter and sigdist their
+    kernels, at every length."""
     n_tp = sum(n in names for n in ("truepeak", "dr14", "tpnrms"))
     n_env = sum(n in names for n in ("din", "nor", "bbc", "ebu", "bbcms"))
 
@@ -2932,7 +3018,8 @@ def live_update(names):
         return {**r128, "truepeak_fused": n_tp * big,
                 "spectrum_fused": big * ("spectrum" in names),
                 "surround_fused": big * ("surround" in names), "ballistics": n_tp * tail,
-                "ballistics_envelope": n_env, "bitmeter_stats": int("bitmeter" in names)}
+                "ballistics_envelope": n_env, "bitmeter_stats": int("bitmeter" in names),
+                "sigdist_fused": int("sigdist" in names)}
     return per
 
 
@@ -3374,7 +3461,8 @@ SHARD_FAMILIES = {
 SHARD_CHAINS = {"dBTP": 1, "DR14": 1, "TPnRMS": 1, "DIN": 1, "BBC": 1, "BBCM6": 2}
 SHARD_KERNELS = ("r128_fused", "ballistics", "truepeak_fused", "bitmeter_stats",
                  "spectrum_fused", "surround_fused", "stft_fused", "ballistics_envelope",
-                 "r128_fused_seg", "surround_fused_wide", "truepeak_fused_serial")
+                 "r128_fused_seg", "surround_fused_wide", "truepeak_fused_serial",
+                 "sigdist_fused")
 
 
 def shard_signal(streams, C, first, seconds, seed, fs=FS):
@@ -3429,8 +3517,8 @@ def shard_local(kind, streams, seconds, sp, fs=FS):
 def reset_counts():
     """Every kernel wrapper's launch count back to 0."""
     from meters_lv2_torch.ops import (
-        ballistics_core, bitmeter_stats, r128_fused, spectrum_fused, stft_fused, surround_fused,
-        truepeak_fused)
+        ballistics_core, bitmeter_stats, r128_fused, sigdist_fused, spectrum_fused, stft_fused,
+        surround_fused, truepeak_fused)
 
     r128_fused.launch_count = r128_fused.seg_launch_count = 0
     ballistics_core.launch_count = ballistics_core.envelope_launch_count = 0
@@ -3439,14 +3527,15 @@ def reset_counts():
     spectrum_fused.launch_count = 0
     surround_fused.launch_count = surround_fused.wide_launch_count = 0
     stft_fused.launch_count = 0
+    sigdist_fused.launch_count = 0
 
 
 def launch_counts():
     """The kernel wrappers' launch counts by kernel name, without
     truepeak_fused's serial body (the meters run it only below 4,300 Hz)."""
     from meters_lv2_torch.ops import (
-        ballistics_core, bitmeter_stats, r128_fused, spectrum_fused, stft_fused, surround_fused,
-        truepeak_fused)
+        ballistics_core, bitmeter_stats, r128_fused, sigdist_fused, spectrum_fused, stft_fused,
+        surround_fused, truepeak_fused)
 
     return {"r128_fused": r128_fused.launch_count, "ballistics": ballistics_core.launch_count,
             "truepeak_fused": truepeak_fused.launch_count,
@@ -3456,7 +3545,8 @@ def launch_counts():
             "stft_fused": stft_fused.launch_count,
             "ballistics_envelope": ballistics_core.envelope_launch_count,
             "r128_fused_seg": r128_fused.seg_launch_count,
-            "surround_fused_wide": surround_fused.wide_launch_count}
+            "surround_fused_wide": surround_fused.wide_launch_count,
+            "sigdist_fused": sigdist_fused.launch_count}
 
 
 def shard_predicted(family, nsp):
@@ -3932,10 +4022,13 @@ def tools_predicted(case):
     tail through the serial ballistics body for dBTP, DR-14 and TP+RMS, the
     PPM needles and M-6 through the envelope body and the bit meter through
     its kernel at every length), and stft_fused once a process call of the
-    phase wheel and the stereoscope."""
+    phase wheel and the stereoscope.  The sweep's sigdist runs in the
+    reference's out-of-range mode, which takes no kernel."""
     n = case.fs * case.seconds // case.block
     if case.kind in ("phasewheel", "stereoscope"):
         return {"stft_fused": n}
+    if case.kind == "sigdist":
+        return {}
     name = {"iec1": "din", "iec2": "bbc", "msppm": "bbcms"}.get(case.kind, case.kind)
     return {k: int(v) * n for k, v in live_update([name])(case.block).items() if v}
 
@@ -4062,8 +4155,8 @@ def main():
     try:
         import meters_lv2_torch
         from meters_lv2_torch.ops import (
-            ballistics_core, bitmeter_stats, design, lti, r128_fused, spectrum_fused,
-            stft_fused, surround_fused, truepeak_fused)
+            ballistics_core, bitmeter_stats, design, lti, r128_fused, sigdist_fused,
+            spectrum_fused, stft_fused, surround_fused, truepeak_fused)
         from meters_lv2_torch.runtime import build
         from meters_lv2_torch.utils.interop import state_to_numpy
     except ImportError as e:
@@ -4273,6 +4366,8 @@ def main():
     failures += errs
     wide_err, errs = wide_kernel_cases(dev)
     failures += errs
+    sd_err, errs = sigdist_kernel_cases(dev)
+    failures += errs
     if failures:
         fail("kernel vs plain: " + " | ".join(failures))
     print("phase kernels: ok")
@@ -4416,7 +4511,7 @@ def main():
     def first4(d):
         return {k: (first4(v) if isinstance(v, dict) else v[:4]) for k, v in d.items()}
 
-    bit_launches = 0
+    bit_launches = sd_launches = 0
     for name, kw, layout in STATS:
         m = meters_lv2_torch.create(name, FS, **kw)
         st = m.init((B_MAIN,))
@@ -4431,13 +4526,17 @@ def main():
         torch.cuda.synchronize()
         got = (ballistics_core.launch_count + ballistics_core.envelope_launch_count,
                truepeak_fused.launch_count, bitmeter_stats.launch_count,
-               r128_fused.launch_count, truepeak_fused.serial_launch_count)
-        want = (0, N_STATS if layout == "stereo" else 0, N_STATS if name == "bitmeter" else 0, 0, 0)
+               sigdist_fused.launch_count, r128_fused.launch_count,
+               truepeak_fused.serial_launch_count)
+        # sigdist's kernel in its default mode only
+        want = (0, N_STATS if layout == "stereo" else 0, N_STATS if name == "bitmeter" else 0,
+                N_STATS if name == "SigDistHist" and not kw else 0, 0, 0)
         if got != want:
-            fail(f"main path {name}: (ballistics, truepeak, bitmeter, r128, serial truepeak) "
-                 f"launches {got}, expected {want}")
+            fail(f"main path {name}: (ballistics, truepeak, bitmeter, sigdist, r128, serial "
+                 f"truepeak) launches {got}, expected {want}")
         tp_launches += got[1]
         bit_launches += got[2]
+        sd_launches += got[3]
         for k, v in out.items():
             if v.shape[0] != B_MAIN or (v.is_floating_point() and not bool(torch.isfinite(v).all())):
                 fail(f"main path {name} readout {k} not finite or not of {B_MAIN} streams")
@@ -4453,7 +4552,8 @@ def main():
                           if v[0].numel() == 1 or v.ndim == 2 and v.shape[1] <= 2)
         print(f"phase main: ok: {tag} {N_STATS} x 1 s blocks at B={B_MAIN}, state on "
               f"{state_tensors(st)[0].device}, (ballistics, "
-              f"truepeak, bitmeter, r128, serial truepeak) launches {got}; {first}; streams 0-3 after "
+              f"truepeak, bitmeter, sigdist, r128, serial truepeak) launches {got}; {first}; "
+              f"streams 0-3 after "
               f"{len(blocks)} blocks vs CPU: exact where exact, worst readout {worst:.3g} dB")
 
     # NaN / +-Inf samples: the card must bin and count them as the CPU does
@@ -4463,9 +4563,14 @@ def main():
             continue
         m = meters_lv2_torch.create(name, FS, **kw)
         st = m.init((4,))
+        n0 = sigdist_fused.launch_count
         for xb in xs_nan:
             st = m.update(st, stats_input(xb, layout))
         out, st = m.read(st)
+        n_sd = sigdist_fused.launch_count - n0
+        if n_sd != (len(xs_nan) if name == "SigDistHist" and not kw else 0):
+            fail(f"NaN/Inf stream {name} {kw}: {n_sd} sigdist_fused launches")
+        sd_launches += n_sd
         ref_state, ref_out = cpu_runs[name, tuple(kw.items()), "nan"].get(timeout=900)
         worst, errs = compare_stats(name, state_to_numpy(st),
                                     {k: v.cpu().numpy() for k, v in out.items()},
@@ -4474,7 +4579,7 @@ def main():
             fail(f"NaN/Inf stream {name} {kw}: card vs CPU: {'; '.join(errs)}")
         print(f"phase main: ok: NaN/+-Inf stream through {name}"
               f"{'(reference_oor_count)' if kw else ''}: card equals CPU "
-              f"(worst readout {worst:.3g} dB)")
+              f"(worst readout {worst:.3g} dB), {n_sd} sigdist_fused launches")
     stop_workers()
     spec_main, spec_tail = spectrum_main(dev, blocks_dev, blocks3, reset_counts)
     marks.append(("main before surround", time.perf_counter()))
@@ -4633,6 +4738,24 @@ def main():
           f"{ms_k}), plain version {times['bitmeter_stats'][1]:.4f} ms (medians {ms_p}) at "
           f"N={B_MAIN} T={FS}; the kernel at N=1 {bit_small[1]:.4f} ms, N=8 "
           f"{bit_small[8]:.4f} ms [{gpu}]")
+    # sigdist_fused at the main-path shape (channel 0 of the stereo block,
+    # on a state with history): kernel, plain, plain, kernel; the launches
+    # queued, so the wrapper's host time is hidden
+    sd_meter = meters_lv2_torch.create("SigDistHist", FS)
+    x_sd = blocks_dev[0][:, 0]
+    st_sd = sd_meter._plain_update(sd_meter.init((B_MAIN,), device=dev), blocks_dev[1][:, 0])
+    sd_args = [getattr(st_sd, k) for k in ("hist", "n", "mean", "m2", "total", "time",
+                                           "integrating")]
+    ms_k, ms_p = [], []
+    for w in "kppk":
+        if w == "k":
+            ms_k.append(queued_ms(lambda: sigdist_fused.sigdist_fused(*sd_args, x_sd), 20))
+        else:
+            ms_p.append(queued_ms(lambda: sd_meter._plain_update(st_sd, x_sd), 3))
+    times["sigdist_fused"] = (statistics.mean(ms_k), statistics.mean(ms_p))
+    print(f"phase times: sigdist_fused kernel {times['sigdist_fused'][0]:.4f} ms (medians "
+          f"{ms_k}), plain update {times['sigdist_fused'][1]:.4f} ms (medians {ms_p}) at "
+          f"N={B_MAIN} T={FS} (row stride {x_sd.stride(0)}), launches queued [{gpu}]")
     n_chunks = 60
     for name, batch in [("dBTPstereo", (B_MAIN, 2)), ("BBCstereo", (B_MAIN, 2)),
                         ("DINstereo", (B_MAIN, 2)), ("BBCM6", (B_MAIN,))]:
@@ -4709,6 +4832,11 @@ def main():
         # x in, the counters out; the work is integer, which the peak
         # table does not rate, so the bound is the bytes
         "bitmeter_stats": bound(4 * B_MAIN * FS + 4 * B_MAIN * (2 * 280 + 23 + 5 + 2), 0),
+        # channel 0 in; the state (hist 361, n, mean, m2, total, time) in and
+        # out, integrating in; 150 x + 180, its rounding, the sum and the
+        # squared deviation (2) a sample
+        "sigdist_fused": bound(4 * B_MAIN * FS + 2 * 4 * B_MAIN * (361 + 5) + B_MAIN,
+                               6 * B_MAIN * FS),
         # x in, z0/v0 in and zf/val/peak out; per (sample, band) the
         # function's own work: six biquads of 5 MACs (60 operations), the
         # square (1), the smoother v + w (q - v) (3) and the max (1)
@@ -4821,6 +4949,22 @@ def main():
         "library_ms": None,
         "ms_n1": bit_small[1],  # a live meter's few streams, T = 48000
         "ms_n8": bit_small[8],
+    }, {
+        "name": "sigdist_fused",
+        "route": "cuda",
+        "source": "meters_lv2_torch/csrc/sigdist_fused.cu",
+        "replaces": None,  # the JAX package leaves SigDistMeter.update to XLA
+        "launches": sd_launches,  # the statistics meters and the NaN/Inf streams, default mode
+        "ingest_launches": ingest_launches["sigdist_fused"],  # phase ingest's pipeline runs
+        "live_launches": live_launches["sigdist_fused"],  # phase live's four engine runs
+        "sharded_launches": sharded_launches["sigdist_fused"],  # 0: no analysis updates
+        "tools_launches": tools_launches.get("sigdist_fused", 0),  # 0: the sweep's oor mode
+        "max_abs_err": sd_err,  # mean, m2, total over each one's scale at the main-path shape
+        "ms": times["sigdist_fused"][0],
+        "plain_ms": times["sigdist_fused"][1],
+        "bound_ms": bounds["sigdist_fused"][0],
+        "bound_by": bounds["sigdist_fused"][1],
+        "library_ms": None,
     }, {
         "name": "spectrum_fused",
         "route": "cuda",

@@ -12,6 +12,10 @@ package, on the CPU and on a card alike.  The running variance is the
 parallel (Chan) merge of per-block moments; ``reference_oor_count=True``
 reproduces the reference's global-index Welford count instead (see
 ``_oor_maps``).
+
+On a CUDA tensor in the default mode one launch of csrc/sigdist_fused.cu
+(``ops/sigdist_fused.py``) does the whole update, with the same histogram,
+count and time and the same merge; ``_plain_update`` runs everywhere else.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import dataclasses
 import torch
 
 from ..ops import hist as hist_ops
+from ..ops import sigdist_fused
 from ..utils import profiler
 from .base import register
 
@@ -80,32 +85,57 @@ class SigDistMeter:
             integrating=torch.ones(batch_shape, dtype=torch.bool, device=device),
         )
 
+    def takes_kernel(self, x: torch.Tensor) -> bool:
+        """Whether update() runs csrc/sigdist_fused.cu for the block x: a
+        CUDA tensor in the default mode.  The reference's out-of-range
+        Welford count keeps its prefix composition on every device."""
+        return x.device.type == "cuda" and not self.reference_oor_count
+
     def update(self, state: SigDistState, x: torch.Tensor) -> SigDistState:
         """x: [..., T] with the state's batch shape."""
         with profiler.span("sigdist.update"):
             x = x.to(torch.float32)
-            T = x.shape[-1]
-            run = state.integrating & (state.time < _CAP - T)
-            with profiler.span("sigdist.hist"):
-                bins = hist_ops.float_to_int32(torch.round(DIST_ZERO + x * DIST_RANGE))
-                ok = (bins >= 0) & (bins < DIST_BIN) & run[..., None]
-                hist = state.hist + hist_ops.bincount(bins, DIST_BIN, valid=ok, dtype=torch.int32)
-            # out-of-range samples are skipped for avg/var too (`if (bin < 0)
-            # continue;`, sigdistlv2.c:303-318)
-            with profiler.span("sigdist.moments"):
-                if self.reference_oor_count:
-                    mean, m2 = self._oor_welford(state, x, ok)
-                    n = state.n + ok.sum(-1, dtype=torch.int32)
-                else:
-                    n, mean, m2 = hist_ops.welford_merge(
-                        (state.n, state.mean, state.m2), hist_ops.welford_block(x, ok)
-                    )
-                total = state.total + torch.where(ok, x, 0.0).sum(-1)
-                time = state.time + torch.where(run, T, 0).to(torch.int32)
-            return SigDistState(
-                hist=hist, n=n, mean=mean, m2=m2, total=total, time=time,
-                integrating=state.integrating,
-            )
+            if not self.takes_kernel(x):
+                return self._plain_update(state, x)
+            with profiler.span("sigdist.kernel"):
+                profiler.count("sigdist.kernel")
+                batch, N = state.n.shape, state.n.numel()
+                hist, *rest = sigdist_fused.sigdist_fused(
+                    state.hist.reshape(N, DIST_BIN),
+                    *(v.reshape(N) for v in (state.n, state.mean, state.m2, state.total,
+                                             state.time, state.integrating)),
+                    x.reshape(N, x.shape[-1]))
+                n, mean, m2, total, time = (v.reshape(batch) for v in rest)
+                return SigDistState(
+                    hist=hist.reshape(*batch, DIST_BIN), n=n, mean=mean, m2=m2, total=total,
+                    time=time, integrating=state.integrating,
+                )
+
+    def _plain_update(self, state: SigDistState, x: torch.Tensor) -> SigDistState:
+        """update() in plain PyTorch ops (any device): the CPU's path, the
+        reference's out-of-range count, and the kernel's test oracle."""
+        T = x.shape[-1]
+        run = state.integrating & (state.time < _CAP - T)
+        with profiler.span("sigdist.hist"):
+            bins = hist_ops.float_to_int32(torch.round(DIST_ZERO + x * DIST_RANGE))
+            ok = (bins >= 0) & (bins < DIST_BIN) & run[..., None]
+            hist = state.hist + hist_ops.bincount(bins, DIST_BIN, valid=ok, dtype=torch.int32)
+        # out-of-range samples are skipped for avg/var too (`if (bin < 0)
+        # continue;`, sigdistlv2.c:303-318)
+        with profiler.span("sigdist.moments"):
+            if self.reference_oor_count:
+                mean, m2 = self._oor_welford(state, x, ok)
+                n = state.n + ok.sum(-1, dtype=torch.int32)
+            else:
+                n, mean, m2 = hist_ops.welford_merge(
+                    (state.n, state.mean, state.m2), hist_ops.welford_block(x, ok)
+                )
+            total = state.total + torch.where(ok, x, 0.0).sum(-1)
+            time = state.time + torch.where(run, T, 0).to(torch.int32)
+        return SigDistState(
+            hist=hist, n=n, mean=mean, m2=m2, total=total, time=time,
+            integrating=state.integrating,
+        )
 
     def _oor_welford(self, state: SigDistState, x: torch.Tensor, ok: torch.Tensor):
         """Reference-exact Welford chain (sigdistlv2.c:313-318): the count

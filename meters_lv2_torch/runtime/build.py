@@ -200,6 +200,15 @@ def _load() -> ctypes.CDLL:
         + [vp] * 6  # hit, one, dset, flags, vmin, vmax (device, written in full)
         + [vp]  # cudaStream_t
     )
+    f = lib.sigdist_fused_launch
+    f.restype = ci
+    f.argtypes = (
+        [vp, ci]  # x (device), row stride
+        + [ci] * 2  # N, T
+        + [vp] * 7  # hist, n, mean, m2, total, time, integrating in (device)
+        + [vp] * 6  # hist, n, mean, m2, total, time out (device, written in full)
+        + [vp]  # cudaStream_t
+    )
     f = lib.spectrum_fused_launch
     f.restype = ci
     f.argtypes = (

@@ -40,7 +40,10 @@ The spans and counters the port records:
   ``dr14.windows`` (the shifted window sums and peaks) and ``dr14.hist``
   (the epilogue: gate, histogram and the slot loop of the top two peaks);
   ``dr14.read``; ``sigdist.update`` (``models/sigdist.py``) with
-  ``sigdist.hist`` and ``sigdist.moments``; ``bitmeter.update``
+  ``sigdist.kernel`` (the sigdist_fused call) on a card, else
+  ``sigdist.hist`` and ``sigdist.moments`` (the plain ops); the counter
+  ``sigdist.kernel``, one for each sigdist update that launched
+  sigdist_fused; ``bitmeter.update``
   (``models/bitmeter.py``) with ``bitmeter.kernel`` (the bitmeter_stats
   call); the counter ``truepeak.serial`` (``ops/ballistics.py``), one for
   each true-peak update whose bulk falls back to truepeak_fused's serial

@@ -15,7 +15,10 @@ bit-exact, z1/z2/m/p within 1e-5 relative (the FIR sums its products in
 another order than the plain version's block matmul; the chain itself adds
 nothing).
 bitmeter_stats: every field exact (integer counts, min/max of the same
-floats).  The statistics meters, card against CPU: histograms and counters
+floats).  sigdist_fused, through SigDistMeter.update, against the meter's
+plain ops on the card (the same state and block): hist, n and time exact,
+mean, m2 and total within 1e-5 of each leaf's scale with the same NaN
+positions (float32 sums in another order).  The statistics meters, card against CPU: histograms and counters
 exact, float leaves within 1e-5 of their scale.
 spectrum_fused: val, block peak and zf within 1e-5 of each leaf's scale,
 with the same NaN and Inf positions (the kernel's smoother runs sample by
@@ -42,6 +45,7 @@ The variants (the ballistics envelope body, R128 seg mode, the surround
 wide layout) have their bars stated above their tests.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -50,8 +54,8 @@ import torch
 
 import meters_lv2_torch
 from meters_lv2_torch.ops import (
-    ballistics_core, bitmeter_stats, design, fft, lti, r128_fused, spectrum_fused, stft_fused,
-    surround_fused, truepeak_fused)
+    ballistics_core, bitmeter_stats, design, fft, lti, r128_fused, sigdist_fused, spectrum_fused,
+    stft_fused, surround_fused, truepeak_fused)
 
 pytestmark = pytest.mark.gpu
 
@@ -408,6 +412,174 @@ def test_statistics_meters_on_card_match_cpu(cuda, name, kw, shape):
                 assert np.all(np.abs(a[k][f] - b[k][f]) <= 1e-5 * scale + 1e-30), f"{path}.{k}"
 
     walk(g, c, name)
+
+
+
+# -- SigDistHist's update kernel ----------------------------------------------
+
+
+def _sigdist_edges() -> np.ndarray:
+    """NaN first, then +-Inf, +-1.2033 (the outermost bins' outer edges,
+    in range) and just beyond, signed zeros, and every half-integer bin edge
+    (k + 0.5 - 180) / 150, k = -1 .. 361, in float32 with both neighbours."""
+    e = ((np.arange(-1, 362) + 0.5 - 180.0) / 150.0).astype(np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, 1.2033, -1.2033, 1.2034, -1.2034, 0.0, -0.0],
+                       np.float32)
+    return np.concatenate([special, np.nextafter(e, np.float32(-2)), e,
+                           np.nextafter(e, np.float32(2))])
+
+
+def _segment_rows(N, T, seed):
+    """0.5 + 0.3 N(0, 1) clipped to [-1, 1], then silence from a random
+    sample of each row on: a loud part with a DC offset meeting silence,
+    where one-pass sums about a shift cancel."""
+    rng = np.random.default_rng(seed)
+    x = np.clip(0.5 + 0.3 * rng.standard_normal((N, T)), -1.0, 1.0).astype(np.float32)
+    for r in range(N):
+        x[r, rng.integers(1, T + 1):] = 0.0
+    return x
+
+
+def _sigdist_rows(N, T, seed):
+    """0.05 N(0, 1) rows; every even row takes the edge samples at random
+    places (as many as fit), row 0 the only one with a NaN; every fourth
+    row from row 3 on is a segment row (_segment_rows)."""
+    rng = np.random.default_rng(seed)
+    x = (0.05 * rng.standard_normal((N, T))).astype(np.float32)
+    x[3::4] = _segment_rows(len(range(3, N, 4)), T, seed + 1)
+    e = _sigdist_edges()
+    for r in range(0, N, 2):
+        pat = rng.permutation(e if r == 0 else e[1:])[:T]
+        x[r, rng.choice(T, pat.size, replace=False)] = pat
+    return x
+
+
+def _sigdist_block(x, layout, device):
+    """x [N, T] on the card as channel 0 of [N, 2, T] or contiguous."""
+    if layout == "contiguous":
+        return torch.as_tensor(x, device=device)
+    xd = torch.full((x.shape[0], 2, x.shape[1]), 0.5, device=device)
+    xd[:, 0] = torch.as_tensor(x, device=device)
+    return xd[:, 0]
+
+
+def _sigdist_state(m, N, T, device, seed):
+    """A state with history: one plain update, then integration off in
+    every fifth row, and time at the 2^31 cap's edge (stalled: time + T
+    would pass 2^31 - 1) and one sample below it (runs) in two others."""
+    st = m._plain_update(m.init((N,), device=device),
+                         torch.as_tensor(_sigdist_rows(N, T, seed), device=device))
+    integrating = st.integrating.clone()
+    integrating[1::5] = False
+    time = st.time.clone()
+    time[2::5] = 2**31 - 1 - T
+    time[3::5] = 2**31 - 2 - T
+    return dataclasses.replace(st, integrating=integrating, time=time)
+
+
+def _assert_sigdist_close(got, ref):
+    for k in ("hist", "n", "time", "integrating"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    for k in ("mean", "m2", "total"):
+        g, r = getattr(got, k).double().cpu(), getattr(ref, k).double().cpu()
+        assert torch.equal(torch.isnan(g), torch.isnan(r)), k
+        f = torch.isfinite(r)
+        scale = r[f].abs().max().item() if f.any() else 0.0
+        assert bool(((g[f] - r[f]).abs() <= 1e-5 * scale + 1e-30).all()), k
+
+
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("T", [4, 128, 4800, 48000])
+@pytest.mark.parametrize("N", [1, 7, 4096])
+def test_sigdist_kernel_matches_plain(cuda, N, T, layout):
+    """One update through the kernel against the plain ops on the same
+    state and block: NaN, +-Inf, +-1.2033 and the bin edges with their
+    neighbours, rows not integrating and rows at the time cap, at the
+    mastering batch (N = 4,096) and at the live shell's few rows (N = 1, 7)."""
+    m = meters_lv2_torch.create("SigDistHist", 48000)
+    st = _sigdist_state(m, N, T, cuda, seed=N + T)
+    x = _sigdist_block(_sigdist_rows(N, T, seed=N * T), layout, cuda)
+    n0 = sigdist_fused.launch_count
+    got = m.update(st, x)
+    ref = m._plain_update(st, x)
+    torch.cuda.synchronize()
+    assert sigdist_fused.launch_count == n0 + 1
+    _assert_sigdist_close(got, ref)
+    again = m.update(st, x)  # the same launch gives the same bits
+    for k in ("mean", "m2", "total"):
+        assert torch.equal(getattr(again, k).view(torch.int32), getattr(got, k).view(torch.int32))
+
+
+@pytest.mark.parametrize("N,T", [(7, 4800), (4096, 48000)])
+def test_sigdist_kernel_chain_matches_plain(cuda, N, T):
+    """Three updates, each side carrying its own state, integration turned
+    off in every third row before the last: each state at the bars."""
+    m = meters_lv2_torch.create("SigDistHist", 48000)
+    sk = sp = m.init((N,), device=cuda)
+    for i in range(3):
+        if i == 2:
+            off = torch.ones(N, dtype=torch.bool, device=cuda)
+            off[::3] = False
+            sk = dataclasses.replace(sk, integrating=off)
+            sp = dataclasses.replace(sp, integrating=off)
+        x = _sigdist_block(_sigdist_rows(N, T, seed=100 + i), "strided", cuda)
+        sk, sp = m.update(sk, x), m._plain_update(sp, x)
+        _assert_sigdist_close(sk, sp)
+
+
+@pytest.mark.parametrize("kind", ["programme", "segments"])
+def test_sigdist_kernel_sums_against_float64(cuda, kind):
+    """From a fresh state, the kernel's total, mean and m2 after one block
+    against float64 sums of the same samples, each within 1e-6 of the
+    scale the benchmark judges it by (sum |x|, its mean, sum x^2, as
+    portbench/reference/SigDistHist.py does): a tenth of the mastering_qc
+    cell's sigdist_rel limit.  The blocks: 64 streams of the cell's
+    programme mix (channel 0, strided), and segment rows."""
+    from portbench import harness, signals
+
+    N, T = 64, 48000
+    if kind == "programme":
+        pool = torch.empty((1, N, 2, T), device=cuda)
+        signals.fill_pool(pool, 2**31 + 28, T, harness.load_cell("mastering_qc").mix)
+        x = pool[0, :, 0]
+    else:
+        x = torch.as_tensor(_segment_rows(N, T, 28), device=cuda)
+    m = meters_lv2_torch.create("SigDistHist", 48000)
+    st = m.update(m.init((N,)), x)
+    v = torch.round(180.0 + x * 150.0)
+    ok = ((v >= 0) & (v <= 360)) | torch.isnan(v)
+    xd = torch.where(ok, x.double(), 0.0)
+    n = ok.sum(-1).double().clamp(min=1)
+    mean = xd.sum(-1) / n
+    m2 = torch.where(ok, (x.double() - mean[:, None]) ** 2, 0.0).sum(-1)
+    a = xd.abs().sum(-1)
+    for k, want, scale in (("total", xd.sum(-1), a), ("mean", mean, a / n),
+                           ("m2", m2, (xd * xd).sum(-1))):
+        err = (getattr(st, k).double() - want).abs()
+        assert bool((err <= 1e-6 * scale).all()), (k, float((err / scale).max()))
+
+
+def test_sigdist_kernel_reaches_the_mastering_pipeline(cuda):
+    """MeterPipeline's mono tap on a card: one launch and one count of the
+    span counter an update, none in the reference's out-of-range mode."""
+    from meters_lv2_torch.models.sigdist import SigDistMeter
+    from meters_lv2_torch.parallel.pipeline import MeterPipeline
+    from meters_lv2_torch.utils import profiler
+
+    pipe = MeterPipeline({"sd": SigDistMeter(48000), "oor": SigDistMeter(48000, True)})
+    st = pipe.init((3,))
+    profiler.enable()
+    try:
+        profiler.collect()
+        n0 = sigdist_fused.launch_count
+        for _ in range(2):
+            st = pipe.update(st, 0.1 * torch.randn((3, 2, 4800), device=cuda))
+        counters = profiler.collect()[1]
+    finally:
+        profiler.disable()
+    assert sigdist_fused.launch_count == n0 + 2
+    assert counters["sigdist.kernel"][0] == 2
+    assert st["sd"].hist.is_cuda and torch.equal(st["sd"].hist, st["oor"].hist)
 
 
 SPEC_TOL = 1e-5

@@ -262,3 +262,42 @@ def test_the_reference_imports_neither_jax_nor_either_package(module):
             names.add(node.module.split(".")[0])
     assert not names & {"jax", "jaxlib", "flax", "meters_lv2_tpu", "meters_lv2_torch"}
     assert names <= {"__future__", "numpy", "torch"}
+
+
+def test_sigdist_on_the_cpu_takes_the_plain_ops(spans_on):
+    from meters_lv2_torch.ops import sigdist_fused
+
+    n0 = sigdist_fused.launch_count
+    for oor in (False, True):
+        m = mt.create("SigDistHist", FS, reference_oor_count=oor)
+        st = m.init((2,), device="cpu")
+        x = 0.1 * torch.randn((2, 4800), generator=torch.Generator().manual_seed(5))
+        got = m.update(st, x)
+        want = m._plain_update(st, x)
+        for k in ("hist", "n", "mean", "m2", "total", "time"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+    spans, counters = profiler.collect()
+    assert "sigdist.kernel" not in counters and sigdist_fused.launch_count == n0
+    assert {s.name for s in spans} == {"sigdist.update", "sigdist.hist", "sigdist.moments"}
+
+
+@pytest.mark.parametrize("oor", [False, True], ids=["default", "reference_oor_count"])
+def test_sigdist_takes_the_kernel_only_for_a_card_tensor_in_the_default_mode(oor):
+    from types import SimpleNamespace
+
+    m = mt.create("SigDistHist", FS, reference_oor_count=oor)
+    on_card = SimpleNamespace(device=torch.device("cuda", 0))
+    assert m.takes_kernel(on_card) is not oor
+    assert m.takes_kernel(torch.zeros(4)) is False
+
+
+def test_the_span_split_reports_the_sigdist_kernel_share():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("r128_spans", ROOT / "tools" / "r128_spans.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tiny = {"batch": 2, "block": 4800, "pool_blocks": 2, "programme_blocks": 2}
+    on = tool.run("mastering_qc", SEED, 0.2, True, device="cpu", overrides=tiny)
+    assert on["metrics"]["sigdist_kernel_share"] == 0.0  # the CPU runs the plain ops
+    assert {"sigdist.hist", "sigdist.moments"} <= set(on["probe_ms"])

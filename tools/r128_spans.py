@@ -3,7 +3,7 @@
 the device's and the host's time in update() and set-up, split by the
 port's own spans.  Any cell: ``r128_batch`` (the R128 spans) or
 ``mastering_qc`` (``pipe.update``, ``dr14.*``, ``sigdist.*``,
-``bitmeter.*`` and the counter ``truepeak.serial``).
+``bitmeter.*`` and the counters ``truepeak.serial`` and ``sigdist.kernel``).
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -21,7 +21,9 @@ window's updates that took r128_fused's seg mode (the counter ``r128.seg``
 over the ``r128.update`` spans) and ``truepeak_serial``, the window's
 true-peak updates that fell back to truepeak_fused's serial body (the
 counter ``truepeak.serial``, 0 where the envelope held, wherever
-``dr14.tp`` ran); ``window_counts``, each of the port's
+``dr14.tp`` ran) and ``sigdist_kernel_share``, the window's sigdist updates
+that launched sigdist_fused (the counter ``sigdist.kernel`` over the
+``sigdist.update`` spans); ``window_counts``, each of the port's
 counters over the window; ``idle_gaps`` labelled by the
 innermost span at each gap's start; ``probe_ms``, the median host ms of
 each part of the top span of update() over the updates timed alone (its
@@ -207,6 +209,10 @@ def run(workload: str, seed: int, seconds: float, port_spans: bool, device: str 
     n_updates = sum(s.name == "r128.update" for s in win_spans)
     if n_updates:
         metrics["seg_share"] = win_counts.get("r128.seg", (0, 0.0))[0] / n_updates
+    n_updates = sum(s.name == "sigdist.update" for s in win_spans)
+    if n_updates:
+        metrics["sigdist_kernel_share"] = (win_counts.get("sigdist.kernel", (0, 0.0))[0]
+                                           / n_updates)
     by_span: dict[str, float] = {}
     for s in win_spans:
         by_span[s.name] = by_span.get(s.name, 0.0) + (s.t1 - s.t0) * 1e-9
